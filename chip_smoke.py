@@ -1,0 +1,367 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `rlobjectdetection_tpu_torch/csrc` with
+nvcc (sm_90a), serves three requests through the flagship detector
+(ResNet-101 C4 Faster R-CNN, 81 COCO classes, 800×1216, bf16 compute,
+fused stem and layer1 kernels, seeded random weights) behind `Detector`,
+then holds every kernel against its plain PyTorch version at the shapes the
+requests gave it, in bf16 and in f32, and times kernel, plain version and
+the library call that computes the same function.
+
+Every phase raises on failure and the script exits non-zero: no CUDA, a
+kernel that does not build or launch, a kernel that disagrees with its plain
+version, a request that gives a wrong shape, non-finite values, no valid
+detection, or a kernel the requests did not launch. The line before the last
+is the card's name and power limit from nvidia-smi; the last line is
+`{"ok": true, "device": {...}}`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+NUM_CLASSES = 81
+IMAGE_SIZES = ((480, 729), (600, 900), (427, 640))   # all serve as 800×1216 blobs
+BLOB_SHAPE = (1, 800, 1216, 3)
+# max |kernel - plain| / max |plain|. bf16: the bounds DESIGN.md recorded for
+# the Pallas kernels against XLA at these shapes; f32: summation order only.
+BF16_TOL = {"stem": 2.45e-3, "layer1": 1.28e-2, "roi_align_avg": 1e-2}
+F32_TOL = 1e-4
+# The whole C4 base, kernel stem + layer1 against the plain modules. In f32
+# the two compute one function (summation order only). In bf16 they round at
+# different points: the plain modules round each conv output and each BN
+# mul and add to bf16 (as the JAX FrozenBatchNorm does), the kernels fold BN
+# into the weights in f32 and round once per conv. Those differences compound
+# through the 27 blocks of layer2-3; measured 2.33e-2 on an H100 (700 W), above
+# the 1.96e-2 DESIGN.md recorded for the Pallas kernels against XLA, so the
+# bound is 3e-2.
+BASE_FEAT_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+REPS, WARMUP = 20, 3
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        fail(msg)
+
+
+def max_errs(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max abs error / max |want|)."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d, d / (want.float().abs().max().item() + 1e-12)
+
+
+def time_ms(fn, flush: torch.Tensor) -> float:
+    """Median of REPS CUDA-event timings of fn() after WARMUP calls, with the
+    50 MB L2 overwritten before each timed call (the serving path finds its
+    inputs cold: each request's tensors are fresh)."""
+    for _ in range(WARMUP):
+        fn()
+    times = []
+    for _ in range(REPS):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: int, flops: float, peak_flops: float) -> tuple[float, str]:
+    """Least time (ms) the card could take: bytes over HBM rate vs operations
+    over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def nvidia_smi_line() -> str:
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=30)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        fail(f"nvidia-smi did not run: {e}")
+    check(res.returncode == 0, f"nvidia-smi exit {res.returncode}: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 convolutions and matmuls without TF32, for the f32 comparisons;
+    the flags are restored after, so the bf16 path runs as served."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def randomize_frozen_bn(model: torch.nn.Module, seed: int) -> None:
+    """Frozen-BN statistics away from the identity, from a numpy seed, so the
+    kernels' BN folds do real work."""
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            leaf = name.rsplit(".", 1)[1]
+            if leaf in ("scale", "var"):
+                v = rng.uniform(0.7, 1.0 if leaf == "scale" else 1.3, buf.shape)
+            else:
+                v = rng.normal(0.0, 0.05, buf.shape)
+            buf.copy_(torch.from_numpy(v.astype(np.float32)))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the smoke run needs a GPU")
+
+    from rlobjectdetection_tpu_torch.engine.detect import postprocess_detections
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
+    from rlobjectdetection_tpu_torch.ops import (_build, layer1_kernel, roi_align,
+                                                 roi_align_kernel, stem_kernel)
+    from rlobjectdetection_tpu_torch.ops.bn_fold import bn_mul_add
+
+    # 1. device
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
+    # 2. build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(built)} "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
+
+    # 3. main path: the flagship detector behind Detector, three requests
+    cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"])
+    check(cfg.CONV1_FUSED and cfg.LAYER1_FUSED and cfg.ANCHOR_SCALES == (4, 8, 16, 32),
+          f"flagship config expected, got {cfg}")
+    model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev, seed=3)
+    randomize_frozen_bn(model, seed=3)
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    print(f"model: resnet101 C4, {NUM_CLASSES} classes, {n_params} parameters "
+          f"(params + frozen-BN statistics), compute {cfg.DTYPE}", flush=True)
+    check(n_params == 48_191_389, f"parameter count {n_params} != 48191389")
+    detector = Detector(model, cfg, dev)
+    rng = np.random.RandomState(0)
+    images = [rng.randint(0, 256, (h, w, 3)).astype(np.float32) for h, w in IMAGE_SIZES]
+    counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                "roi_align_avg": roi_align_kernel.roi_align_avg}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    latencies = []
+    for i, im in enumerate(images):
+        check(detector.blob(im)[0].shape == BLOB_SHAPE, f"request {i}: blob shape")
+        before = {k: f.launches for k, f in counters.items()}
+        t0 = time.perf_counter()
+        boxes, scores, classes, valid = detector.detect(im)     # ends in a device sync
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        check(boxes.shape == (100, 4) and scores.shape == classes.shape == valid.shape == (100,),
+              f"request {i}: shapes {boxes.shape} {scores.shape}")
+        check(np.isfinite(boxes).all() and np.isfinite(scores).all(), f"request {i}: non-finite")
+        check(int(valid.sum()) >= 1, f"request {i}: no valid detection")
+        check(((classes[valid] >= 1) & (classes[valid] < NUM_CLASSES)).all(),
+              f"request {i}: class out of range")
+        moved = {k: f.launches - before[k] for k, f in counters.items()}
+        check(all(moved.values()), f"request {i}: kernel launch counts moved {moved}")
+        print(f"request {i}: image {im.shape[0]}x{im.shape[1]} -> blob 800x1216, "
+              f"{int(valid.sum())} detections, {latencies[-1]:.2f} ms, launches {moved}",
+              flush=True)
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path: 3 requests, latency ms {[round(t, 3) for t in latencies]}, "
+          f"peak memory {peak} bytes, launches {launches}", flush=True)
+    check(all(launches.values()), f"a kernel of the path was not launched: {launches}")
+
+    # where one request's time goes: host clock around each stage, each ended
+    # by a device sync (so the stages do not overlap as they do when served)
+    base, bn = model.base, model.base.bn1
+    stages, t = {}, 0.0
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        stages[name] = round((time.perf_counter() - t) * 1e3, 3)
+        t = time.perf_counter()
+
+    with torch.no_grad():
+        for _ in range(2):                      # the second pass is the one kept
+            t = time.perf_counter()
+            blob, im_info = detector.blob(images[0])
+            data = torch.from_numpy(blob).to(dev)
+            info = torch.from_numpy(im_info).to(dev)
+            lap("prep (numpy resize and pad, copy to the card)")
+            feat = base(data)
+            lap("base (stem, layer1-3)")
+            rois, _, roi_valid = model.proposals(feat, info)
+            lap("rpn (head convs, decode, top-k, NMS)")
+            cls_prob, bbox_pred = model.detect_head(feat, rois)
+            lap("head (roi_align_avg, layer4, classifiers)")
+            dets = postprocess_detections(
+                rois[0], cls_prob[0], bbox_pred[0], info[0], roi_valid[0],
+                num_classes=NUM_CLASSES, max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE,
+                nms_thresh=cfg.TEST.NMS)
+            lap("postprocess (per-class NMS, top-100)")
+            for d in dets:
+                d.cpu()
+            lap("copy detections to the host")
+    print(f"request stages ms: {stages}", flush=True)
+
+    # 4. each kernel against its plain version at the shapes the requests gave it
+    stem_w = (base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var)
+    bf16, f32 = torch.bfloat16, torch.float32
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    results = {}
+
+    def parity(name, dtype, got, want, tol):
+        torch.cuda.synchronize()
+        abs_err, rel_err = max_errs(got, want)
+        print(f"{name} {str(dtype)[6:]}: max abs {abs_err:.3e}, max rel {rel_err:.3e} "
+              f"(bound {tol:.2e})", flush=True)
+        check(rel_err <= tol, f"{name} {dtype}: max rel {rel_err:.3e} > {tol:.2e}")
+        return abs_err, rel_err
+
+    with torch.no_grad():
+        # stem: [1, 800, 1216, 3] f32 image -> [1, 200, 304, 64]
+        stem_bf = stem_kernel.fused_stem(data, *stem_w, dtype=bf16)
+        err = parity("stem", bf16, stem_bf, stem_kernel.stem_plain(data, *stem_w, dtype=bf16),
+                     BF16_TOL["stem"])
+        with full_f32():
+            stem_f32 = stem_kernel.fused_stem(data, *stem_w, dtype=f32)
+            parity("stem", f32, stem_f32, stem_kernel.stem_plain(data, *stem_w, dtype=f32),
+                   F32_TOL)
+        mul, add = (v.to(bf16)[:, None, None] for v in bn_mul_add(*stem_w[1:]))
+        w_bf = base.conv1.weight.to(bf16)
+        oh, ow = stem_kernel.stem_out_shapes(*BLOB_SHAPE[1:3])[:2]
+        b_stem, f_stem = bound(nbytes(data, *stem_w, stem_bf), 2.0 * oh * ow * 64 * 147,
+                               BF16_TENSOR_FLOPS)
+        results["stem"] = dict(
+            err=err, ms=time_ms(lambda: stem_kernel.fused_stem(data, *stem_w, dtype=bf16), flush),
+            plain_ms=time_ms(lambda: stem_kernel.stem_plain(data, *stem_w, dtype=bf16), flush),
+            library_ms=time_ms(lambda: torch.nn.functional.max_pool2d(torch.relu(
+                torch.nn.functional.conv2d(nhwc_to_nchw(data.to(bf16)), w_bf, stride=2,
+                                           padding=3) * mul + add), 3, 2, 0, ceil_mode=True),
+                flush),
+            bound_ms=b_stem, bound_by=f_stem)
+
+        # layer1, fed the stem's output: [1, 200, 304, 64] -> [1, 200, 304, 256]
+        packed_bf = layer1_kernel.pack_layer1(base.layer1, bf16)
+        l1_bf = layer1_kernel.fused_layer1(stem_bf, base.layer1, dtype=bf16)
+        err = parity("layer1", bf16, l1_bf, layer1_kernel.layer1_plain(stem_bf, packed_bf, bf16),
+                     BF16_TOL["layer1"])
+        with full_f32():
+            l1_f32 = layer1_kernel.fused_layer1(stem_f32, base.layer1, dtype=f32)
+            parity("layer1", f32, l1_f32, layer1_kernel.layer1_plain(
+                stem_f32, layer1_kernel.pack_layer1(base.layer1, f32), f32), F32_TOL)
+        _, h1, w1, _ = stem_bf.shape
+        macs = (64 * 64 + 9 * 64 * 64 + 64 * 256 + 64 * 256) + 2 * (256 * 64 + 9 * 64 * 64 + 64 * 256)
+        weights = [v for pk in packed_bf for v in pk.values() if v is not None]
+        b_l1, f_l1 = bound(nbytes(stem_bf, l1_bf, *weights), 2.0 * h1 * w1 * macs,
+                           BF16_TENSOR_FLOPS)
+        stem_nchw = nhwc_to_nchw(stem_bf)
+        results["layer1"] = dict(
+            err=err, ms=time_ms(lambda: layer1_kernel.fused_layer1(stem_bf, base.layer1,
+                                                                   dtype=bf16), flush),
+            plain_ms=time_ms(lambda: layer1_kernel.layer1_plain(stem_bf, packed_bf, bf16), flush),
+            library_ms=time_ms(lambda: base.layer1(stem_nchw), flush),
+            bound_ms=b_l1, bound_by=f_l1)
+
+        # RoIAlignAvg on the request's base_feat and rois: [1, 50, 76, 1024], [300, 5]
+        base_feat = base(data)
+        rois = model.proposals(base_feat, info)[0].reshape(-1, 5).contiguous()
+        check(tuple(base_feat.shape) == (1, 50, 76, 1024) and tuple(rois.shape) == (300, 5),
+              f"head inputs {tuple(base_feat.shape)} {tuple(rois.shape)}")
+        pooled = roi_align_kernel.roi_align_avg(base_feat, rois)
+        err = parity("roi_align_avg", bf16, pooled, roi_align.roi_align_avg(base_feat, rois),
+                     BF16_TOL["roi_align_avg"])
+        feat_f32 = base_feat.float()
+        parity("roi_align_avg", f32, roi_align_kernel.roi_align_avg(feat_f32, rois),
+               roi_align.roi_align_avg(feat_f32, rois), F32_TOL)
+        # operations this run's rois need: 7 per inside sample (the bilinear
+        # blend; outside samples are skipped) and 4 per output cell (the mean)
+        _, fh, fw, c = base_feat.shape
+        inside = roi_align.roi_align_coords(rois, fh, fw, 8, 8, 1.0 / 16.0)[-1]
+        flops = c * (7.0 * int(inside.sum()) + 4.0 * rois.shape[0] * 49)
+        b_roi, f_roi = bound(nbytes(base_feat, rois, pooled), flops, F32_FLOPS)
+        results["roi_align_avg"] = dict(
+            err=err, ms=time_ms(lambda: roi_align_kernel.roi_align_avg(base_feat, rois), flush),
+            plain_ms=time_ms(lambda: roi_align.roi_align_avg(base_feat, rois), flush),
+            library_ms=None, bound_ms=b_roi, bound_by=f_roi)
+
+        # 5. the whole C4 base: kernel stem + layer1 against the plain modules
+        check(bool(torch.isfinite(base_feat.float()).all()), "base_feat is not finite")
+        for dtype in (bf16, f32):
+            base.dtype = dtype
+            with full_f32() if dtype == f32 else contextlib.nullcontext():
+                got = base(data)
+                base.conv1_fused = False
+                want = base(data)
+                base.conv1_fused = True
+            torch.cuda.synchronize()
+            tol = BASE_FEAT_TOL[dtype]
+            _, rel = max_errs(got, want)
+            mean_rel = ((got.float() - want.float()).abs().mean()
+                        / want.float().abs().max()).item()
+            print(f"base_feat {str(dtype)[6:]} (stem+layer1 kernels vs plain modules): "
+                  f"max rel {rel:.3e}, mean rel {mean_rel:.3e} (bound {tol:.2e})", flush=True)
+            check(rel <= tol, f"base_feat {dtype}: max rel {rel:.3e} > {tol:.2e}")
+        base.dtype = bf16
+
+    sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
+               "layer1": ("csrc/layer1.cu", "rlobjectdetection_tpu/ops/layer1_pallas.py:317"),
+               "roi_align_avg": ("csrc/roi_align.cu",
+                                 "rlobjectdetection_tpu/ops/roi_align_pallas.py:108")}
+    kernels = []
+    for name, r in results.items():
+        print(f"{name}: kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), "
+              f"launches {launches[name]} in 3 requests, bf16 max rel {r['err'][1]:.3e}",
+              flush=True)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "rlobjectdetection_tpu_torch/" + sources[name][0],
+                        "replaces": sources[name][1], "launches": launches[name],
+                        "max_abs_err": r["err"][0], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,25 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The device an entry point runs on. CUDA is the default; without a GPU
+    that raises, so a CPU run is always one the caller asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU")
+    return dev
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """cfg.DTYPE → torch dtype (the JAX package's `bfloat16` / `float32`)."""
+    if name == "bfloat16":
+        return torch.bfloat16
+    if name == "float32":
+        return torch.float32
+    raise ValueError(f"unsupported DTYPE {name!r}")

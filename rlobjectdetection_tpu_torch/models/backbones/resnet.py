@@ -1,0 +1,169 @@
+"""ResNet backbone, C4 Faster R-CNN flavour (counterpart of
+`rlobjectdetection_tpu/models/backbones/resnet.py`).
+
+  * base = conv1..layer3 → `[B, H/16, W/16, 1024]`; head = layer4 (stride 2)
+    + spatial mean → `[R, 2048]`;
+  * caffe flavour: the stride sits on the 1×1 conv1 and the 1×1 downsample,
+    never on the 3×3;
+  * the max-pool is 3×3/2, padding 0, ceil mode;
+  * BatchNorm is frozen: `FrozenBatchNorm` holds scale/bias/mean/var as
+    buffers and applies x*mul + add, mul/add computed in f32 then cast to
+    the compute dtype, as the JAX module does.
+
+Public tensors are NHWC like the JAX package's. Inside, convs take NCHW
+views of NHWC memory (PyTorch's channels-last format), so no layout copy is
+made between the NHWC kernels and cuDNN's convs. With `conv1_fused` the stem
+is the CUDA kernel of `ops/stem_kernel.py`, and with `layer1_fused` as well
+layer1 is `ops/layer1_kernel.py` (the gating of the JAX `ResNetBase`: the
+fused layer1 consumes the fused stem's output). Layers 2–4 are plain convs,
+as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.layer1_kernel import fused_layer1
+from ...ops.stem_kernel import fused_stem
+
+LAYER_SPECS = {
+    18: (2, 2, 2, 2),
+    34: (3, 4, 6, 3),
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NCHW view of NHWC memory (channels-last), no copy."""
+    return x.permute(0, 3, 1, 2)
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose weight (f32 parameter) is cast to the input's dtype at
+    each call, as the JAX modules cast params to their compute dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
+
+
+def conv(cin, cout, k, stride=1, bias=False):
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with frozen statistics on NCHW input: y = x*mul + add."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("scale", torch.ones(features))
+        self.register_buffer("bias", torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x):
+        inv = torch.rsqrt(self.var + self.eps)
+        mul = (self.scale * inv).to(x.dtype)
+        add = (self.bias - self.mean * self.scale * inv).to(x.dtype)
+        return x * mul[:, None, None] + add[:, None, None]
+
+
+def ceil_max_pool(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel 3, stride 2, padding 0, ceil_mode=True) on NCHW."""
+    return F.max_pool2d(x, 3, 2, 0, ceil_mode=True)
+
+
+class Bottleneck(nn.Module):
+    """1×1 → 3×3 → 1×1 bottleneck, expansion 4, stride on the 1×1 conv1."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = conv(inplanes, planes, 1, stride)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = conv(planes, planes, 3)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.conv3 = conv(planes, planes * 4, 1)
+        self.bn3 = FrozenBatchNorm(planes * 4)
+        self.downsample = downsample
+        if downsample:
+            self.downsample_conv = conv(inplanes, planes * 4, 1, stride)
+            self.downsample_bn = FrozenBatchNorm(planes * 4)
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        sc = self.downsample_bn(self.downsample_conv(x)) if self.downsample else x
+        return torch.relu(out + sc)
+
+
+class ResLayer(nn.Module):
+    """A residual stage: strided block0 with downsample + identity blocks,
+    as attributes `block0`, `block1`, ... (the JAX param names)."""
+
+    def __init__(self, inplanes: int, planes: int, blocks: int, stride: int = 1):
+        super().__init__()
+        self.blocks = blocks
+        self.block0 = Bottleneck(inplanes, planes, stride, downsample=True)
+        for i in range(1, blocks):
+            setattr(self, f"block{i}", Bottleneck(planes * 4, planes))
+
+    def forward(self, x):
+        for i in range(self.blocks):
+            x = getattr(self, f"block{i}")(x)
+        return x
+
+
+class ResNetBase(nn.Module):
+    """conv1..layer3: `[B, H, W, 3]` → `[B, H/16, W/16, 1024]`, both NHWC."""
+
+    def __init__(self, num_layers: int = 101, dtype: torch.dtype = torch.float32,
+                 conv1_fused: bool = False, layer1_fused: bool = False):
+        super().__init__()
+        specs = LAYER_SPECS[num_layers]
+        self.dtype = dtype
+        self.conv1_fused = conv1_fused
+        self.layer1_fused = layer1_fused
+        self.conv1 = conv(3, 64, 7, 2)
+        self.bn1 = FrozenBatchNorm(64)
+        self.layer1 = ResLayer(64, 64, specs[0], 1)
+        self.layer2 = ResLayer(256, 128, specs[1], 2)
+        self.layer3 = ResLayer(512, 256, specs[2], 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv1_fused:
+            bn = self.bn1
+            x = fused_stem(x.contiguous(), self.conv1.weight, bn.scale, bn.bias,
+                           bn.mean, bn.var, dtype=self.dtype)      # NHWC
+            if self.layer1_fused:
+                x = fused_layer1(x, self.layer1, dtype=self.dtype)
+                x = nhwc_to_nchw(x)
+            else:
+                x = self.layer1(nhwc_to_nchw(x))
+        else:
+            x = nhwc_to_nchw(x.to(self.dtype))
+            x = ceil_max_pool(torch.relu(self.bn1(self.conv1(x))))
+            x = self.layer1(x)
+        x = self.layer3(self.layer2(x))
+        return nchw_to_nhwc(x)
+
+
+class ResNetHead(nn.Module):
+    """layer4 + spatial mean: pooled `[R, P, P, 1024]` NHWC → `[R, 2048]`."""
+
+    def __init__(self, num_layers: int = 101, stride: int = 2):
+        super().__init__()
+        self.layer4 = ResLayer(1024, 512, LAYER_SPECS[num_layers][3], stride)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.layer4(nhwc_to_nchw(pooled)).mean(dim=(2, 3))

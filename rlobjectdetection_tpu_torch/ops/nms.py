@@ -1,0 +1,109 @@
+"""Greedy NMS with fixed-shape outputs (counterpart of
+`rlobjectdetection_tpu/ops/nms.py`).
+
+Same semantics as the JAX package: boxes sorted by descending score (stable,
+so equal scores keep their input order), a box is suppressed iff a surviving
+earlier box overlaps it with IoU > threshold (+1 width convention), and the
+top survivors are compacted by a cumulative sum with zero padding. The keep
+set equals the JAX one exactly: small problems (N <= 2·tile) compare
+`inter > thr·union` over one N×N adjacency, larger ones compare the divided
+IoU tile by tile, as the JAX small-mask and tiled paths do.
+
+Within a tile the "suppresses" relation is a DAG in score order, so a Jacobi
+iteration reaches its unique fixpoint, the sequential greedy result, in at
+most the depth of the longest suppression chain. All functions take any
+leading batch dimensions (the per-class NMS of post-processing runs the
+classes as one batch). There is no NMS kernel: the JAX package retired both
+of its Pallas NMS variants.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .boxes import _inter_union, bbox_overlaps
+
+NEG_INF = -1e10
+
+
+def _suppresses(a: torch.Tensor, b: torch.Tensor, thr: float, small: bool):
+    """`[..., T, S]` bool: IoU(a_t, b_s) > thr, in the JAX path's own form."""
+    if small:
+        inter, union = _inter_union(a, b)
+        return inter > thr * union
+    return bbox_overlaps(a, b) > thr
+
+
+def nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+                    tile_size: int = 256, max_keep: int | None = None) -> torch.Tensor:
+    """Greedy keep-mask `[..., N]` for boxes `[..., N, 4]` already sorted by
+    descending score. With `max_keep`, tiles stop once every batch lane has
+    kept that many boxes: the first `max_keep` survivors are final then."""
+    n = boxes.shape[-2]
+    small = n <= 2 * tile_size
+    tile = max(n, 1) if small else tile_size
+    keep = torch.zeros(valid.shape, dtype=torch.bool, device=boxes.device)
+    for start in range(0, n, tile):
+        end = min(start + tile, n)
+        tb = boxes[..., start:end, :]
+        tv = valid[..., start:end]
+        t = end - start
+        lower = torch.ones(t, t, dtype=torch.bool, device=boxes.device).tril(-1)
+        adj = _suppresses(tb, tb, iou_threshold, small) & lower & tv[..., None, :]
+        if start > 0:
+            cross = _suppresses(tb, boxes[..., :start, :], iou_threshold, small)
+            sup_prev = (cross & keep[..., None, :start]).any(-1)
+        else:
+            sup_prev = torch.zeros_like(tv)
+        sup = sup_prev | adj.any(-1)
+        while True:
+            new = sup_prev | (adj & ~sup[..., None, :]).any(-1)
+            if torch.equal(new, sup):
+                break
+            sup = new
+        keep[..., start:end] = tv & ~sup
+        if (max_keep is not None and end < n
+                and bool((keep.sum(-1) >= max_keep).all())):
+            break
+    return keep
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+        valid: torch.Tensor | None = None, tile_size: int = 256,
+        max_keep: int | None = None):
+    """Greedy NMS on unsorted boxes `[..., N, 4]`, scores `[..., N]`.
+
+    Returns (order, keep): `order` sorts by descending score (stable, like
+    `jnp.argsort`), `keep` is the keep mask aligned to that order."""
+    if valid is None:
+        valid = torch.ones(scores.shape, dtype=torch.bool, device=scores.device)
+    skey = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    order = torch.argsort(-skey, dim=-1, stable=True)
+    sboxes = torch.take_along_dim(boxes, order[..., None], dim=-2)
+    svalid = torch.take_along_dim(valid, order, dim=-1)
+    keep = nms_sorted_mask(sboxes, svalid, iou_threshold, tile_size=tile_size,
+                           max_keep=max_keep)
+    return order, keep
+
+
+def nms_select(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+               max_out: int, valid: torch.Tensor | None = None, tile_size: int = 256):
+    """NMS, then the top `max_out` survivors in score order, zero-padded.
+
+    Returns (sel_boxes `[..., max_out, 4]`, sel_scores `[..., max_out]`,
+    sel_valid `[..., max_out]`). Survivors are already in score order, so the
+    m-th output is the first index where cumsum(keep) reaches m+1."""
+    order, keep = nms(boxes, scores, iou_threshold, valid=valid,
+                      tile_size=tile_size, max_keep=max_out)
+    n = keep.shape[-1]
+    csum = keep.to(torch.int32).cumsum(-1, dtype=torch.int32)
+    m = torch.arange(max_out, dtype=torch.int32, device=keep.device)
+    want = (m + 1).expand(keep.shape[:-1] + (max_out,)).contiguous()
+    top_idx = torch.searchsorted(csum.contiguous(), want).clamp_max(max(n - 1, 0))
+    sel_valid = m < csum[..., -1:]
+    sel_in_sorted = torch.take_along_dim(order, top_idx, dim=-1)
+    sel_boxes = torch.take_along_dim(boxes, sel_in_sorted[..., None], dim=-2)
+    sel_boxes = torch.where(sel_valid[..., None], sel_boxes, torch.zeros_like(sel_boxes))
+    sel_scores = torch.take_along_dim(scores, sel_in_sorted, dim=-1)
+    sel_scores = torch.where(sel_valid, sel_scores, torch.zeros_like(sel_scores))
+    return sel_boxes, sel_scores, sel_valid

@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the GPU.
+
+These tests need a CUDA device and skip without one. The file imports no
+JAX, so it runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+
+(`--noconftest`: tests/conftest.py sets up JAX for the rest of the suite).
+Tolerances are max |kernel - plain| / max |plain|: 1e-4 in f32 (summation
+order), and in bf16 the bounds chip_smoke.py uses (one bf16 rounding of a
+differently-ordered f32 sum, compounded through layer1's rounded
+intermediates)."""
+
+import numpy as np
+import pytest
+import torch
+
+from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
+from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align, roi_align_kernel, stem_kernel
+
+
+def max_rel(got, want):
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-12))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are compiled for sm_90a")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randomize_bn(module, rng):
+    """Frozen-BN buffers away from the identity, so the folds are exercised."""
+    for name, buf in module.named_buffers():
+        leaf = name.rsplit(".", 1)[1]
+        r = rng.randn(*buf.shape).astype(np.float32) * 0.1
+        if leaf in ("scale", "var"):
+            r = np.abs(r) + 0.5
+        buf.copy_(torch.from_numpy(r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-3)])
+def test_stem_kernel_matches_plain(cuda, dtype, tol):
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy((rng.randn(2, 37, 45, 3) * 30).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.randn(64, 3, 7, 7) * 0.1).astype(np.float32)).to(cuda)
+    bn = [torch.from_numpy(v.astype(np.float32)).to(cuda) for v in
+          (rng.rand(64) + 0.5, rng.randn(64), rng.randn(64) * 0.2, rng.rand(64) + 0.3)]
+    n0 = stem_kernel.fused_stem.launches
+    got = stem_kernel.fused_stem(x, w, *bn, dtype=dtype)
+    torch.cuda.synchronize()
+    assert stem_kernel.fused_stem.launches == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (2, 9, 11, 64)   # ceil-mode pool
+    assert max_rel(got, stem_kernel.stem_plain(x, w, *bn, dtype=dtype)) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.28e-2)])
+def test_layer1_kernel_matches_plain(cuda, dtype, tol):
+    rng = np.random.RandomState(2)
+    layer = ResLayer(64, 64, 3, 1).requires_grad_(False)
+    _randomize_bn(layer, rng)
+    layer = layer.to(cuda)
+    x = torch.from_numpy(np.abs(rng.randn(2, 13, 21, 64)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    n0 = layer1_kernel.fused_layer1.launches
+    got = layer1_kernel.fused_layer1(x, layer, dtype=dtype)
+    torch.cuda.synchronize()
+    assert layer1_kernel.fused_layer1.launches == n0 + 3
+    want = layer1_kernel.layer1_plain(x, layer1_kernel.pack_layer1(layer, dtype), dtype)
+    assert max_rel(got, want) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+def test_roi_align_kernel_matches_plain(cuda, dtype, tol):
+    rng = np.random.RandomState(3)
+    feats = torch.from_numpy(rng.randn(2, 25, 38, 300).astype(np.float32)).to(cuda, dtype)
+    rois = np.zeros((40, 5), np.float32)
+    rois[:, 0] = rng.randint(0, 2, 40)
+    rois[:, 1:3] = rng.rand(40, 2) * 360
+    rois[:, 3:5] = rois[:, 1:3] + rng.rand(40, 2) * 240 + 16
+    rois[:2, 1:] = [[-40, -30, 100, 90], [500, 300, 900, 700]]   # off the map
+    rois = torch.from_numpy(rois).to(cuda)
+    n0 = roi_align_kernel.roi_align_avg.launches
+    got = roi_align_kernel.roi_align_avg(feats, rois)
+    torch.cuda.synchronize()
+    assert roi_align_kernel.roi_align_avg.launches == n0 + 1
+    assert max_rel(got, roi_align.roi_align_avg(feats, rois)) < tol
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 40, 40, 3, device=cuda)
+    w = torch.zeros(64, 3, 7, 7, device=cuda)
+    bn = [torch.ones(64, device=cuda)] * 4
+    with pytest.raises(ValueError):
+        stem_kernel.fused_stem(x.permute(0, 2, 1, 3), w, *bn)      # not contiguous
+    with pytest.raises(ValueError):
+        roi_align_kernel.roi_align_avg(torch.zeros(1, 5, 5, 8, device=cuda),
+                                       torch.zeros(3, 5, device=cuda), pooled_size=6)
