@@ -3,12 +3,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rlobjectdetection_tpu_torch/csrc` with
-nvcc (sm_90a), serves three requests through the flagship detector
-(ResNet-101 C4 Faster R-CNN, 81 COCO classes, 800×1216, bf16 compute,
-fused stem and layer1 kernels, seeded random weights) behind `Detector`,
-then holds every kernel against its plain PyTorch version at the shapes the
-requests gave it, in bf16 and in f32, and times kernel, plain version and
-the library call that computes the same function.
+nvcc (sm_90a), all four in parallel. Then, for each of the two served
+detectors (81 COCO classes, 800×1216, bf16 compute, seeded random weights)
+behind `Detector`:
+
+  * the flagship, ResNet-101 C4 with the fused stem and layer1 kernels;
+  * VGG-16 with the fused block-1 kernel;
+
+it serves three requests with every launch count set to 0 just before and
+read just after, times the stages of one request, holds every kernel of
+that path against its plain PyTorch version at the shapes the requests gave
+it, in bf16 and in f32, times kernel, plain version and the library call
+that computes the same function, and holds the whole backbone with the
+kernels against the plain modules. RoIAlignAvg runs on both paths (1024
+and 512 channels).
 
 Every phase raises on failure and the script exits non-zero: no CUDA, a
 kernel that does not build or launch, a kernel that disagrees with its plain
@@ -29,6 +37,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -42,6 +51,12 @@ BLOB_SHAPE = (1, 800, 1216, 3)
 # max |kernel - plain| / max |plain|. bf16: the bounds DESIGN.md recorded for
 # the Pallas kernels against XLA at these shapes; f32: summation order only.
 BF16_TOL = {"stem": 2.45e-3, "layer1": 1.28e-2, "roi_align_avg": 1e-2}
+# RoIAlignAvg on VGG-16's 512-channel features against the plain version in
+# bf16 arithmetic, which rounds its bilinear weights, their products and
+# every sum to bf16: it measured 1.099e-2 (two bf16 steps at a largest output of 5.7) on an H100
+# (700 W), so the bound is 2e-2. Against the plain version's f32 arithmetic,
+# the kernel's own, it is held at one bf16 step.
+BF16_TOL["roi_align_avg C=512"] = 2e-2
 F32_TOL = 1e-4
 # The whole C4 base, kernel stem + layer1 against the plain modules. In f32
 # the two compute one function (summation order only). In bf16 they round at
@@ -52,6 +67,21 @@ F32_TOL = 1e-4
 # the 1.96e-2 DESIGN.md recorded for the Pallas kernels against XLA, so the
 # bound is 3e-2.
 BASE_FEAT_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+# Where kernel and plain version round the same f32 results to bf16 at the
+# same points, the sums still run in other orders, so an output may round to
+# the neighbouring bf16 value: one bf16 step of the largest output is at
+# most 2^-7 of it. VGG-16 block 1 measured 4.785e-3 on an H100 (700 W), 1.0
+# at a largest output of 209; the 4.24e-3 ROADMAP §2 item 4 records for the
+# Pallas kernel against XLA is the same one-step event (1/236).
+ONE_BF16_STEP = 2.0 ** -7
+VGG_BLOCK1_TOL = {torch.bfloat16: ONE_BF16_STEP, torch.float32: F32_TOL}
+# The whole VGG-16 base, kernel block 1 against the plain modules. Blocks
+# 2-5 are the same cuDNN convs on both sides. The plain block 1 casts its
+# biases to bf16 (as flax's nn.Conv does) where the kernel keeps them in f32,
+# and its sums run in other orders, so some block-1 outputs differ by a bf16
+# step; those differences carry through blocks 2-5: measured 9.90e-3 (mean
+# 6.4e-4) on an H100 (700 W), so the bound is 2e-2.
+VGG_BASE_FEAT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 REPS, WARMUP = 20, 3
 
 
@@ -137,78 +167,48 @@ def randomize_frozen_bn(model: torch.nn.Module, seed: int) -> None:
             buf.copy_(torch.from_numpy(v.astype(np.float32)))
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: the smoke run needs a GPU")
-
-    from rlobjectdetection_tpu_torch.engine.detect import postprocess_detections
-    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
-    from rlobjectdetection_tpu_torch.models import FasterRCNN
-    from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
-    from rlobjectdetection_tpu_torch.ops import (_build, layer1_kernel, roi_align,
-                                                 roi_align_kernel, stem_kernel)
-    from rlobjectdetection_tpu_torch.ops.bn_fold import bn_mul_add
-
-    # 1. device
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
-    print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}", flush=True)
-
-    # 2. build: one nvcc per source, all started together
-    t0 = time.perf_counter()
-    built = _build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(built)} "
-          + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
-
-    # 3. main path: the flagship detector behind Detector, three requests
-    cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"])
-    check(cfg.CONV1_FUSED and cfg.LAYER1_FUSED and cfg.ANCHOR_SCALES == (4, 8, 16, 32),
-          f"flagship config expected, got {cfg}")
-    model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev, seed=3)
-    randomize_frozen_bn(model, seed=3)
-    n_params = sum(t.numel() for t in model.state_dict().values())
-    print(f"model: resnet101 C4, {NUM_CLASSES} classes, {n_params} parameters "
-          f"(params + frozen-BN statistics), compute {cfg.DTYPE}", flush=True)
-    check(n_params == 48_191_389, f"parameter count {n_params} != 48191389")
-    detector = Detector(model, cfg, dev)
-    rng = np.random.RandomState(0)
-    images = [rng.randint(0, 256, (h, w, 3)).astype(np.float32) for h, w in IMAGE_SIZES]
-    counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
-                "roi_align_avg": roi_align_kernel.roi_align_avg}
-
+def serve_requests(label: str, detector, images, counters: dict) -> dict:
+    """Serve each image through `detector.detect` with every launch count
+    set to 0 just before; check each request's detections and that every
+    counted kernel launched in it. Returns the counts over all requests."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
         f.launches = 0
     latencies = []
     for i, im in enumerate(images):
-        check(detector.blob(im)[0].shape == BLOB_SHAPE, f"request {i}: blob shape")
+        check(detector.blob(im)[0].shape == BLOB_SHAPE, f"{label} request {i}: blob shape")
         before = {k: f.launches for k, f in counters.items()}
         t0 = time.perf_counter()
         boxes, scores, classes, valid = detector.detect(im)     # ends in a device sync
         latencies.append((time.perf_counter() - t0) * 1e3)
         check(boxes.shape == (100, 4) and scores.shape == classes.shape == valid.shape == (100,),
-              f"request {i}: shapes {boxes.shape} {scores.shape}")
-        check(np.isfinite(boxes).all() and np.isfinite(scores).all(), f"request {i}: non-finite")
-        check(int(valid.sum()) >= 1, f"request {i}: no valid detection")
+              f"{label} request {i}: shapes {boxes.shape} {scores.shape}")
+        check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
+              f"{label} request {i}: non-finite")
+        check(int(valid.sum()) >= 1, f"{label} request {i}: no valid detection")
         check(((classes[valid] >= 1) & (classes[valid] < NUM_CLASSES)).all(),
-              f"request {i}: class out of range")
+              f"{label} request {i}: class out of range")
         moved = {k: f.launches - before[k] for k, f in counters.items()}
-        check(all(moved.values()), f"request {i}: kernel launch counts moved {moved}")
-        print(f"request {i}: image {im.shape[0]}x{im.shape[1]} -> blob 800x1216, "
+        check(all(moved.values()), f"{label} request {i}: kernel launch counts moved {moved}")
+        print(f"{label} request {i}: image {im.shape[0]}x{im.shape[1]} -> blob 800x1216, "
               f"{int(valid.sum())} detections, {latencies[-1]:.2f} ms, launches {moved}",
               flush=True)
     launches = {k: f.launches for k, f in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path: 3 requests, latency ms {[round(t, 3) for t in latencies]}, "
+    print(f"{label} path: 3 requests, latency ms {[round(t, 3) for t in latencies]}, "
           f"peak memory {peak} bytes, launches {launches}", flush=True)
-    check(all(launches.values()), f"a kernel of the path was not launched: {launches}")
+    check(all(launches.values()), f"{label}: a kernel of the path was not launched: {launches}")
+    return launches
 
-    # where one request's time goes: host clock around each stage, each ended
-    # by a device sync (so the stages do not overlap as they do when served)
-    base, bn = model.base, model.base.bn1
+
+def request_stages(label: str, detector, image, base_stage: str, head_stage: str):
+    """Where one request's time goes: host clock around each stage, each
+    ended by a device sync (so the stages do not overlap as they do when
+    served). Returns the request's blob and im_info on the card."""
+    from rlobjectdetection_tpu_torch.engine.detect import postprocess_detections
+
+    model, cfg, dev = detector.model, detector.cfg, detector.device
     stages, t = {}, 0.0
 
     def lap(name):
@@ -220,40 +220,117 @@ def main() -> None:
     with torch.no_grad():
         for _ in range(2):                      # the second pass is the one kept
             t = time.perf_counter()
-            blob, im_info = detector.blob(images[0])
+            blob, im_info = detector.blob(image)
             data = torch.from_numpy(blob).to(dev)
             info = torch.from_numpy(im_info).to(dev)
             lap("prep (numpy resize and pad, copy to the card)")
-            feat = base(data)
-            lap("base (stem, layer1-3)")
+            feat = model.base(data)
+            lap(base_stage)
             rois, _, roi_valid = model.proposals(feat, info)
             lap("rpn (head convs, decode, top-k, NMS)")
             cls_prob, bbox_pred = model.detect_head(feat, rois)
-            lap("head (roi_align_avg, layer4, classifiers)")
+            lap(head_stage)
             dets = postprocess_detections(
                 rois[0], cls_prob[0], bbox_pred[0], info[0], roi_valid[0],
-                num_classes=NUM_CLASSES, max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE,
+                num_classes=model.num_classes, max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE,
                 nms_thresh=cfg.TEST.NMS)
             lap("postprocess (per-class NMS, top-100)")
             for d in dets:
                 d.cpu()
             lap("copy detections to the host")
-    print(f"request stages ms: {stages}", flush=True)
+    print(f"{label} request stages ms: {stages}", flush=True)
+    return data, info
 
-    # 4. each kernel against its plain version at the shapes the requests gave it
+
+def parity(name, dtype, got, want, tol):
+    torch.cuda.synchronize()
+    abs_err, rel_err = max_errs(got, want)
+    print(f"{name} {str(dtype)[6:]}: max abs {abs_err:.3e}, max rel {rel_err:.3e} "
+          f"(bound {tol:.2e})", flush=True)
+    check(rel_err <= tol, f"{name} {dtype}: max rel {rel_err:.3e} > {tol:.2e}")
+    return abs_err, rel_err
+
+
+def roi_align_check(label, base_feat, rois, flush, bf16_plain_tol) -> dict:
+    """RoIAlignAvg on a request's base_feat and rois. The kernel blends and
+    averages bf16 features in f32 and rounds once: it is held against the
+    plain version's f32 arithmetic on the same features, rounded once (one
+    bf16 step), against the plain version in bf16 arithmetic (bf16 products
+    and sums, as the JAX path computes; `bf16_plain_tol` covers their own
+    roundings), and in f32."""
+    from rlobjectdetection_tpu_torch.ops import roi_align, roi_align_kernel
+
+    pooled = roi_align_kernel.roi_align_avg(base_feat, rois)
+    feat_f32 = base_feat.float()
+    err = parity(f"roi_align_avg {label} (plain in f32, rounded once)", torch.bfloat16, pooled,
+                 roi_align.roi_align_avg(feat_f32, rois).to(torch.bfloat16), ONE_BF16_STEP)
+    err = parity(f"roi_align_avg {label}", torch.bfloat16, pooled,
+                 roi_align.roi_align_avg(base_feat, rois), bf16_plain_tol)
+    parity(f"roi_align_avg {label}", torch.float32, roi_align_kernel.roi_align_avg(feat_f32, rois),
+           roi_align.roi_align_avg(feat_f32, rois), F32_TOL)
+    # operations this run's rois need: 7 per inside sample (the bilinear
+    # blend; outside samples are skipped) and 4 per output cell (the mean)
+    _, fh, fw, c = base_feat.shape
+    inside = roi_align.roi_align_coords(rois, fh, fw, 8, 8, 1.0 / 16.0)[-1]
+    flops = c * (7.0 * int(inside.sum()) + 4.0 * rois.shape[0] * 49)
+    b_roi, f_roi = bound(nbytes(base_feat, rois, pooled), flops, F32_FLOPS)
+    return dict(
+        err=err, ms=time_ms(lambda: roi_align_kernel.roi_align_avg(base_feat, rois), flush),
+        plain_ms=time_ms(lambda: roi_align.roi_align_avg(base_feat, rois), flush),
+        library_ms=None, bound_ms=b_roi, bound_by=f_roi)
+
+
+def base_check(label, base, data, tols) -> None:
+    """The whole backbone with its kernels against the plain modules."""
+    for dtype in (torch.bfloat16, torch.float32):
+        base.dtype = dtype
+        with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
+            got = base(data)
+            base.conv1_fused = False
+            want = base(data)
+            base.conv1_fused = True
+        torch.cuda.synchronize()
+        tol = tols[dtype]
+        _, rel = max_errs(got, want)
+        mean_rel = ((got.float() - want.float()).abs().mean()
+                    / want.float().abs().max()).item()
+        print(f"base_feat {str(dtype)[6:]} ({label} vs plain modules): "
+              f"max rel {rel:.3e}, mean rel {mean_rel:.3e} (bound {tol:.2e})", flush=True)
+        check(rel <= tol, f"base_feat {label} {dtype}: max rel {rel:.3e} > {tol:.2e}")
+    base.dtype = torch.bfloat16
+
+
+def flagship(cfg, images) -> tuple[dict, dict]:
+    """ResNet-101 C4: three requests, stages, the stem, layer1 and
+    RoIAlignAvg kernels against their plain versions, the whole C4 base."""
+    from rlobjectdetection_tpu_torch.engine.serve import Detector
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops.bn_fold import bn_mul_add
+
+    dev = torch.device("cuda")
+    check(cfg.CONV1_FUSED and cfg.LAYER1_FUSED and cfg.ANCHOR_SCALES == (4, 8, 16, 32),
+          f"flagship config expected, got {cfg}")
+    model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev, seed=3)
+    randomize_frozen_bn(model, seed=3)
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    print(f"model: resnet101 C4, {NUM_CLASSES} classes, {n_params} parameters "
+          f"(params + frozen-BN statistics), compute {cfg.DTYPE}", flush=True)
+    check(n_params == 48_191_389, f"parameter count {n_params} != 48191389")
+    detector = Detector(model, cfg, dev)
+    counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                "roi_align_avg": roi_align_kernel.roi_align_avg}
+    launches = serve_requests("main", detector, images, counters)
+    data, info = request_stages("main", detector, images[0], "base (stem, layer1-3)",
+                                "head (roi_align_avg, layer4, classifiers)")
+
+    # each kernel against its plain version at the shapes the requests gave it
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    base, bn = model.base, model.base.bn1
     stem_w = (base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var)
     bf16, f32 = torch.bfloat16, torch.float32
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     results = {}
-
-    def parity(name, dtype, got, want, tol):
-        torch.cuda.synchronize()
-        abs_err, rel_err = max_errs(got, want)
-        print(f"{name} {str(dtype)[6:]}: max abs {abs_err:.3e}, max rel {rel_err:.3e} "
-              f"(bound {tol:.2e})", flush=True)
-        check(rel_err <= tol, f"{name} {dtype}: max rel {rel_err:.3e} > {tol:.2e}")
-        return abs_err, rel_err
-
     with torch.no_grad():
         # stem: [1, 800, 1216, 3] f32 image -> [1, 200, 304, 64]
         stem_bf = stem_kernel.fused_stem(data, *stem_w, dtype=bf16)
@@ -271,8 +348,8 @@ def main() -> None:
         results["stem"] = dict(
             err=err, ms=time_ms(lambda: stem_kernel.fused_stem(data, *stem_w, dtype=bf16), flush),
             plain_ms=time_ms(lambda: stem_kernel.stem_plain(data, *stem_w, dtype=bf16), flush),
-            library_ms=time_ms(lambda: torch.nn.functional.max_pool2d(torch.relu(
-                torch.nn.functional.conv2d(nhwc_to_nchw(data.to(bf16)), w_bf, stride=2,
+            library_ms=time_ms(lambda: F.max_pool2d(torch.relu(
+                F.conv2d(nhwc_to_nchw(data.to(bf16)), w_bf, stride=2,
                                            padding=3) * mul + add), 3, 2, 0, ceil_mode=True),
                 flush),
             bound_ms=b_stem, bound_by=f_stem)
@@ -304,59 +381,135 @@ def main() -> None:
         rois = model.proposals(base_feat, info)[0].reshape(-1, 5).contiguous()
         check(tuple(base_feat.shape) == (1, 50, 76, 1024) and tuple(rois.shape) == (300, 5),
               f"head inputs {tuple(base_feat.shape)} {tuple(rois.shape)}")
-        pooled = roi_align_kernel.roi_align_avg(base_feat, rois)
-        err = parity("roi_align_avg", bf16, pooled, roi_align.roi_align_avg(base_feat, rois),
-                     BF16_TOL["roi_align_avg"])
-        feat_f32 = base_feat.float()
-        parity("roi_align_avg", f32, roi_align_kernel.roi_align_avg(feat_f32, rois),
-               roi_align.roi_align_avg(feat_f32, rois), F32_TOL)
-        # operations this run's rois need: 7 per inside sample (the bilinear
-        # blend; outside samples are skipped) and 4 per output cell (the mean)
-        _, fh, fw, c = base_feat.shape
-        inside = roi_align.roi_align_coords(rois, fh, fw, 8, 8, 1.0 / 16.0)[-1]
-        flops = c * (7.0 * int(inside.sum()) + 4.0 * rois.shape[0] * 49)
-        b_roi, f_roi = bound(nbytes(base_feat, rois, pooled), flops, F32_FLOPS)
-        results["roi_align_avg"] = dict(
-            err=err, ms=time_ms(lambda: roi_align_kernel.roi_align_avg(base_feat, rois), flush),
-            plain_ms=time_ms(lambda: roi_align.roi_align_avg(base_feat, rois), flush),
-            library_ms=None, bound_ms=b_roi, bound_by=f_roi)
+        results["roi_align_avg"] = roi_align_check("C=1024", base_feat, rois, flush,
+                                                   BF16_TOL["roi_align_avg"])
 
-        # 5. the whole C4 base: kernel stem + layer1 against the plain modules
+        # the whole C4 base: kernel stem + layer1 against the plain modules
         check(bool(torch.isfinite(base_feat.float()).all()), "base_feat is not finite")
-        for dtype in (bf16, f32):
-            base.dtype = dtype
-            with full_f32() if dtype == f32 else contextlib.nullcontext():
-                got = base(data)
-                base.conv1_fused = False
-                want = base(data)
-                base.conv1_fused = True
-            torch.cuda.synchronize()
-            tol = BASE_FEAT_TOL[dtype]
-            _, rel = max_errs(got, want)
-            mean_rel = ((got.float() - want.float()).abs().mean()
-                        / want.float().abs().max()).item()
-            print(f"base_feat {str(dtype)[6:]} (stem+layer1 kernels vs plain modules): "
-                  f"max rel {rel:.3e}, mean rel {mean_rel:.3e} (bound {tol:.2e})", flush=True)
-            check(rel <= tol, f"base_feat {dtype}: max rel {rel:.3e} > {tol:.2e}")
-        base.dtype = bf16
+        base_check("stem+layer1 kernels", base, data, BASE_FEAT_TOL)
+    return results, launches
 
+
+def vgg16(cfg, images) -> tuple[dict, dict]:
+    """VGG-16: three requests, stages, the block-1 kernel and RoIAlignAvg at
+    512 channels against their plain versions, the whole VGG base."""
+    from rlobjectdetection_tpu_torch.engine.serve import Detector
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
+    from rlobjectdetection_tpu_torch.ops import roi_align_kernel, vgg_block1_kernel
+
+    dev = torch.device("cuda")
+    model = FasterRCNN(NUM_CLASSES, "vgg16", cfg, device=dev, seed=3)
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    print(f"model: vgg16, {NUM_CLASSES} classes, {n_params} parameters, compute "
+          f"{cfg.DTYPE}", flush=True)
+    check(n_params == 138_316_573, f"parameter count {n_params} != 138316573")
+    detector = Detector(model, cfg, dev)
+    counters = {"vgg_block1": vgg_block1_kernel.fused_vgg_block1,
+                "roi_align_avg": roi_align_kernel.roi_align_avg}
+    launches = serve_requests("vgg16", detector, images, counters)
+    data, info = request_stages("vgg16", detector, images[0],
+                                "base (block 1 kernel, blocks 2-5)",
+                                "head (roi_align_avg, fc6/fc7, classifiers)")
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    base = model.base
+    c1, c2 = base.conv1_1, base.conv1_2
+    w = (c1.weight, c1.bias, c2.weight, c2.bias)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+    with torch.no_grad():
+        # block 1: [1, 800, 1216, 3] f32 image -> [1, 400, 608, 64]
+        block = lambda dtype: vgg_block1_kernel.fused_vgg_block1(data, *w, dtype=dtype)
+        plain = lambda dtype: vgg_block1_kernel.vgg_block1_plain(data, *w, dtype=dtype)
+        out_bf = block(bf16)
+        err = parity("vgg_block1", bf16, out_bf, plain(bf16), VGG_BLOCK1_TOL[bf16])
+        with full_f32():
+            parity("vgg_block1", f32, block(f32), plain(f32), VGG_BLOCK1_TOL[f32])
+        w_bf = [t.to(bf16) for t in w]
+        _, h, wd, _ = data.shape
+        b_blk, f_blk = bound(nbytes(data, *w, out_bf), 2.0 * h * wd * 64 * (27 + 576),
+                             BF16_TENSOR_FLOPS)
+        results["vgg_block1"] = dict(
+            err=err, ms=time_ms(lambda: block(bf16), flush),
+            plain_ms=time_ms(lambda: plain(bf16), flush),
+            library_ms=time_ms(lambda: F.max_pool2d(torch.relu(F.conv2d(torch.relu(F.conv2d(
+                nhwc_to_nchw(data.to(bf16)), w_bf[0], w_bf[1], padding=1)), w_bf[2], w_bf[3],
+                padding=1)), 2, 2), flush),
+            bound_ms=b_blk, bound_by=f_blk)
+
+        # RoIAlignAvg on the request's base_feat and rois: [1, 50, 76, 512], [300, 5]
+        base_feat = base(data)
+        rois = model.proposals(base_feat, info)[0].reshape(-1, 5).contiguous()
+        check(tuple(base_feat.shape) == (1, 50, 76, 512) and tuple(rois.shape) == (300, 5),
+              f"vgg16 head inputs {tuple(base_feat.shape)} {tuple(rois.shape)}")
+        results["roi_align_avg C=512"] = roi_align_check("C=512", base_feat, rois, flush,
+                                                         BF16_TOL["roi_align_avg C=512"])
+
+        check(bool(torch.isfinite(base_feat.float()).all()), "vgg16 base_feat is not finite")
+        base_check("vgg block-1 kernel", base, data, VGG_BASE_FEAT_TOL)
+    return results, launches
+
+
+def report(name, r, launches, label=None) -> None:
+    print(f"{label or name}: kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+          f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, "
+          f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), "
+          f"launches {launches}, bf16 max rel {r['err'][1]:.3e}", flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the smoke run needs a GPU")
+
+    from rlobjectdetection_tpu_torch.engine.serve import build_config
+    from rlobjectdetection_tpu_torch.ops import _build
+
+    # 1. device
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+
+    # 2. build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(built)} "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
+
+    # 3. the two served detectors, one after the other (the first freed
+    # before the second, so each path's peak memory is its own)
+    cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"])
+    rng = np.random.RandomState(0)
+    images = [rng.randint(0, 256, (h, w, 3)).astype(np.float32) for h, w in IMAGE_SIZES]
+    results, launches = flagship(cfg, images)
+    torch.cuda.empty_cache()
+    vgg_results, vgg_launches = vgg16(cfg, images)
+
+    # 4. the kernels line: launches over both paths' requests
+    roi_launches = launches["roi_align_avg"] + vgg_launches["roi_align_avg"]
+    results["vgg_block1"] = vgg_results["vgg_block1"]
+    launches = dict(launches, vgg_block1=vgg_launches["vgg_block1"], roi_align_avg=roi_launches)
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
                "layer1": ("csrc/layer1.cu", "rlobjectdetection_tpu/ops/layer1_pallas.py:317"),
                "roi_align_avg": ("csrc/roi_align.cu",
-                                 "rlobjectdetection_tpu/ops/roi_align_pallas.py:108")}
+                                 "rlobjectdetection_tpu/ops/roi_align_pallas.py:108"),
+               "vgg_block1": ("csrc/vgg_block1.cu",
+                              "rlobjectdetection_tpu/ops/vgg_stem_pallas.py:270")}
     kernels = []
     for name, r in results.items():
-        print(f"{name}: kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
-              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}), "
-              f"launches {launches[name]} in 3 requests, bf16 max rel {r['err'][1]:.3e}",
-              flush=True)
+        report(name, r, f"{launches[name]} in 6 requests" if name == "roi_align_avg"
+               else f"{launches[name]} in 3 requests",
+               "roi_align_avg C=1024" if name == "roi_align_avg" else None)
         kernels.append({"name": name, "route": "cuda",
                         "source": "rlobjectdetection_tpu_torch/" + sources[name][0],
                         "replaces": sources[name][1], "launches": launches[name],
                         "max_abs_err": r["err"][0], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    report("roi_align_avg", vgg_results["roi_align_avg C=512"],
+           f"{vgg_launches['roi_align_avg']} in the 3 vgg16 requests", "roi_align_avg C=512")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,6 +26,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
+// element i of an image that is f32 or bf16 (x_dtype), as f32
+__device__ __forceinline__ float load_pixel(const void* x, int x_dtype, size_t i) {
+  return x_dtype == RLOD_F32 ? static_cast<const float*>(x)[i]
+                             : __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
+}
+
 // 8 consecutive elements at a 16-byte aligned address → f32 registers
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);

@@ -31,11 +31,6 @@ constexpr int GROUPS = NTHREADS / 64;
 constexpr int PPT = (NPOS + GROUPS - 1) / GROUPS;  // conv cells per thread
 constexpr int SMEM_BYTES = (IH * IW * 3 + NPOS * 64) * sizeof(float);
 
-__device__ __forceinline__ float load_pixel(const void* x, int x_dtype, size_t i) {
-  return x_dtype == RLOD_F32 ? static_cast<const float*>(x)[i]
-                             : __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
-}
-
 template <typename TOut>
 __global__ void __launch_bounds__(NTHREADS) stem_kernel(
     const void* __restrict__ x, int x_dtype, int round_bf16,

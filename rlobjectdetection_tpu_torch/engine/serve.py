@@ -2,7 +2,7 @@
 of `tools/demo.py::_make_detector`, without the drawing and the webcam.
 
     python -m rlobjectdetection_tpu_torch.engine.serve --image_dir D \
-        [--load_npz P] [--net res101] [--dataset coco] [--device cuda] \
+        [--load_npz P] [--net res101|vgg16] [--dataset coco] [--device cuda] \
         [--set TEST.SCALES "[800]" ...]
 
 serves every image of a folder with seeded random weights, or with a
@@ -26,6 +26,9 @@ from .checkpoint import load_net_npz
 from .detect import postprocess_detections
 
 NUM_CLASSES = {"pascal_voc": 21, "pascal_voc_0712": 21, "coco": 81}
+# --net → FasterRCNN backbone, as tools/demo.py maps it
+BACKBONES = {"vgg16": "vgg16", "res50": "resnet50", "res101": "resnet101",
+             "res152": "resnet152"}
 
 
 class Detector:
@@ -63,7 +66,8 @@ class Detector:
 
 
 def build_config(dataset: str, set_cfgs=None) -> Config:
-    """Config() + the dataset's anchors + the fused kernels on + `--set`."""
+    """Config() + the dataset's anchors + the fused kernels on + `--set`.
+    VGG-16 reads CONV1_FUSED (its block-1 kernel) and ignores LAYER1_FUSED."""
     cfg = cfg_update(Config(), dict(DATASET_OVERRIDES[dataset],
                                     CONV1_FUSED=True, LAYER1_FUSED=True))
     return cfg_from_list(cfg, set_cfgs) if set_cfgs else cfg
@@ -73,14 +77,14 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="Faster R-CNN detection over an image folder")
     p.add_argument("--image_dir", required=True)
     p.add_argument("--load_npz", default=None, help="save_net_npz dump of the JAX package")
-    p.add_argument("--net", default="res101", choices=("res50", "res101", "res152"))
+    p.add_argument("--net", default="res101", choices=sorted(BACKBONES))
     p.add_argument("--dataset", default="coco", choices=sorted(NUM_CLASSES))
     p.add_argument("--device", default="cuda")
     p.add_argument("--set", dest="set_cfgs", nargs="*", default=None)
     args = p.parse_args(argv)
 
     cfg = build_config(args.dataset, args.set_cfgs)
-    model = FasterRCNN(NUM_CLASSES[args.dataset], "resnet" + args.net[3:], cfg,
+    model = FasterRCNN(NUM_CLASSES[args.dataset], BACKBONES[args.net], cfg,
                        device=args.device)
     if args.load_npz:
         load_net_npz(args.load_npz, model)

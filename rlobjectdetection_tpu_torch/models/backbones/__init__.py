@@ -1,3 +1,4 @@
 from .resnet import FrozenBatchNorm, ResLayer, ResNetBase, ResNetHead
+from .vgg import VGGBase, VGGHead
 
-__all__ = ["FrozenBatchNorm", "ResLayer", "ResNetBase", "ResNetHead"]
+__all__ = ["FrozenBatchNorm", "ResLayer", "ResNetBase", "ResNetHead", "VGGBase", "VGGHead"]

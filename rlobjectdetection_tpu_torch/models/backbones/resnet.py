@@ -55,6 +55,13 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride, self.padding)
 
 
+class Dense(nn.Linear):
+    """nn.Linear whose f32 parameters are cast to the input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 def conv(cin, cout, k, stride=1, bias=False):
     return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 

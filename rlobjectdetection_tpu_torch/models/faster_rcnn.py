@@ -1,15 +1,16 @@
 """Faster R-CNN detector, eval forward (counterpart of
 `rlobjectdetection_tpu/models/faster_rcnn.py`).
 
-backbone → RPN → proposal layer → RoIAlignAvg → layer4 head → class
-probabilities + per-class box regression. Parameters are f32; compute runs
-in cfg.DTYPE. Module and parameter names follow the JAX param tree
-(`base/layer1/block0/conv1/kernel` is `base.layer1.block0.conv1.weight`),
+backbone → RPN → proposal layer → RoIAlignAvg → head (ResNet layer4, or
+VGG-16 fc6/fc7) → class probabilities + per-class box regression.
+Parameters are f32; compute runs in cfg.DTYPE. Module and parameter names
+follow the JAX param tree (`base/layer1/block0/conv1/kernel` is
+`base.layer1.block0.conv1.weight`, `head/fc6/kernel` is `head.fc6.weight`),
 which is what `engine/checkpoint.py` maps.
 
-This slice serves: ResNet backbones with POOLING_MODE "align". Training,
-the VGG-16 backbone and the pool / crop modes are later slices (ROADMAP.md
-§1), and asking for them raises.
+The port serves the ResNet and VGG-16 backbones with POOLING_MODE "align".
+Training and the pool / crop modes are later slices (ROADMAP.md §1), and
+asking for them raises.
 """
 
 from __future__ import annotations
@@ -17,52 +18,50 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
 from ..device import compute_dtype, resolve_device
 from ..ops.roi_align_kernel import roi_align_avg
-from .backbones.resnet import Conv2d, ResNetBase, ResNetHead
+from .backbones.resnet import Conv2d, Dense, ResNetBase, ResNetHead
+from .backbones.vgg import VGGBase, VGGHead
 from .rpn import RPNHead, proposal_layer, rpn_fg_probs
 
 
-class Dense(nn.Linear):
-    """nn.Linear whose f32 parameters are cast to the input's dtype."""
-
-    def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
-
-
 class FasterRCNN(nn.Module):
-    """`FasterRCNN(num_classes, "resnet101", cfg)`; weights are made from
-    `seed` (the JAX model's initialisers, numbers from a torch.Generator)."""
+    """`FasterRCNN(num_classes, "resnet101" | "vgg16", cfg)`; weights are
+    made from `seed` (the JAX model's initialisers, numbers from a
+    torch.Generator)."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet101",
                  cfg: Config = Config(), class_agnostic: bool = False, *,
                  device: str | torch.device = "cuda", seed: int = 3):
         super().__init__()
         dev = resolve_device(device)
-        if not backbone.startswith("resnet"):
-            raise NotImplementedError(
-                f"backbone {backbone!r}: only ResNet backbones are ported so "
-                f"far; VGG-16 is ROADMAP.md §1 item 13")
         if cfg.POOLING_MODE != "align":
             raise NotImplementedError(
                 f"POOLING_MODE {cfg.POOLING_MODE!r}: only 'align' is ported so "
-                f"far; pool and crop are ROADMAP.md §1 item 14")
+                f"far; pool and crop are ROADMAP.md §1 item 12")
         self.num_classes = num_classes
         self.class_agnostic = class_agnostic
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.DTYPE)
-        layers = int(backbone[len("resnet"):])
         self.num_anchors = len(cfg.ANCHOR_SCALES) * len(cfg.ANCHOR_RATIOS)
-        self.base = ResNetBase(layers, self.dtype, conv1_fused=cfg.CONV1_FUSED,
-                               layer1_fused=cfg.LAYER1_FUSED)
-        self.head = ResNetHead(layers)
-        self.rpn = RPNHead(self.num_anchors)
-        self.RCNN_cls_score = Dense(2048, num_classes)
-        self.RCNN_bbox_pred = Dense(2048, 4 if class_agnostic else 4 * num_classes)
+        if backbone == "vgg16":
+            self.base = VGGBase(self.dtype, conv1_fused=cfg.CONV1_FUSED)
+            self.head = VGGHead(cfg.POOLING_SIZE)
+            base_ch, head_ch = 512, 4096
+        elif backbone.startswith("resnet"):
+            layers = int(backbone[len("resnet"):])
+            self.base = ResNetBase(layers, self.dtype, conv1_fused=cfg.CONV1_FUSED,
+                                   layer1_fused=cfg.LAYER1_FUSED)
+            self.head = ResNetHead(layers)
+            base_ch, head_ch = 1024, 2048
+        else:
+            raise ValueError(f"unknown backbone {backbone!r}")
+        self.rpn = RPNHead(self.num_anchors, base_ch)
+        self.RCNN_cls_score = Dense(head_ch, num_classes)
+        self.RCNN_bbox_pred = Dense(head_ch, 4 if class_agnostic else 4 * num_classes)
         init_weights(self, seed)
         self.requires_grad_(False)
         self.to(dev)
@@ -79,12 +78,12 @@ class FasterRCNN(nn.Module):
             nms_tile=c.NMS_TILE)
 
     def detect_head(self, base_feat: torch.Tensor, rois: torch.Tensor):
-        """RoIAlignAvg + layer4 + heads for rois `[B, R, 5]`: (cls_prob
+        """RoIAlignAvg + head + classifiers for rois `[B, R, 5]`: (cls_prob
         `[B, R, C]` f32 softmax, bbox_pred `[B, R, 4C]` f32)."""
         b, r = rois.shape[:2]
         pooled = roi_align_avg(base_feat.contiguous(), rois.reshape(-1, 5).contiguous(),
                                self.cfg.POOLING_SIZE, 1.0 / 16.0).to(self.dtype)
-        feat = self.head(pooled)                                     # [B*R, 2048]
+        feat = self.head(pooled)                           # [B*R, 2048 | 4096]
         cls_score = self.RCNN_cls_score(feat).float()
         bbox_pred = self.RCNN_bbox_pred(feat).float()
         cls_prob = torch.softmax(cls_score, dim=-1)
@@ -96,7 +95,7 @@ class FasterRCNN(nn.Module):
         if train:
             raise NotImplementedError(
                 "the train forward (targets, losses, train step) is the training "
-                "slice, ROADMAP.md §1 items 9-10")
+                "slice, ROADMAP.md §1 item 11")
         base_feat = self.base(im_data)
         rois, _, roi_valid = self.proposals(base_feat, im_info)
         cls_prob, bbox_pred = self.detect_head(base_feat, rois)
@@ -113,9 +112,10 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_weights(model: FasterRCNN, seed: int) -> None:
-    """The JAX model's initialisers: lecun-normal backbone convs, normal(0.01)
-    RPN convs and class scores, normal(0.001) box regression, zero biases,
-    identity frozen BN (the BN buffers' defaults)."""
+    """The JAX model's initialisers: lecun-normal backbone convs and VGG
+    fc6/fc7 (flax's Dense default), normal(0.01) RPN convs and class scores,
+    normal(0.001) box regression, zero biases, identity frozen BN (the BN
+    buffers' defaults)."""
     gen = torch.Generator().manual_seed(seed)
     for name, mod in model.named_modules():
         if not isinstance(mod, (Conv2d, Dense)):

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
-from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align, roi_align_kernel, stem_kernel
+from rlobjectdetection_tpu_torch.ops import (layer1_kernel, roi_align, roi_align_kernel,
+                                             stem_kernel, vgg_block1_kernel)
 
 
 def max_rel(got, want):
@@ -95,12 +96,37 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)])
+def test_vgg_block1_kernel_matches_plain(cuda, dtype, tol):
+    """36×52 → 18×26 pooled cells: partial 8×8 tiles on both axes, and a
+    nonzero b1 so that the border's literal zero padding is checked. In
+    bf16 kernel and plain version round the same f32 results at the same
+    points, but their sums run in other orders: an output may round to the
+    neighbouring bf16 value, at most 2^-7 of the largest output."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy((rng.randn(2, 36, 52, 3) * 30).astype(np.float32)).to(cuda)
+    w1 = torch.from_numpy((rng.randn(64, 3, 3, 3) * 0.2).astype(np.float32)).to(cuda)
+    b1 = torch.from_numpy(rng.randn(64).astype(np.float32)).to(cuda)
+    w2 = torch.from_numpy((rng.randn(64, 64, 3, 3) * 0.05).astype(np.float32)).to(cuda)
+    b2 = torch.from_numpy(rng.randn(64).astype(np.float32)).to(cuda)
+    n0 = vgg_block1_kernel.fused_vgg_block1.launches
+    got = vgg_block1_kernel.fused_vgg_block1(x, w1, b1, w2, b2, dtype=dtype)
+    torch.cuda.synchronize()
+    assert vgg_block1_kernel.fused_vgg_block1.launches == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (2, 18, 26, 64)
+    assert max_rel(got, vgg_block1_kernel.vgg_block1_plain(x, w1, b1, w2, b2, dtype=dtype)) < tol
+
+
+@pytest.mark.gpu
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 40, 40, 3, device=cuda)
     w = torch.zeros(64, 3, 7, 7, device=cuda)
     bn = [torch.ones(64, device=cuda)] * 4
     with pytest.raises(ValueError):
         stem_kernel.fused_stem(x.permute(0, 2, 1, 3), w, *bn)      # not contiguous
+    with pytest.raises(ValueError, match="even"):
+        vgg_block1_kernel.fused_vgg_block1(x[:, :39], torch.zeros(64, 3, 3, 3, device=cuda),
+                                           bn[0], torch.zeros(64, 64, 3, 3, device=cuda), bn[0])
     with pytest.raises(ValueError):
         roi_align_kernel.roi_align_avg(torch.zeros(1, 5, 5, 8, device=cuda),
                                        torch.zeros(3, 5, device=cuda), pooled_size=6)

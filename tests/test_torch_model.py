@@ -267,7 +267,11 @@ def test_unported_modes_raise_with_a_roadmap_pointer(models):
     _, _, model, _ = models
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]), train=True)
+    # VGG-16 serves, but trains no more than ResNet does (a small pooled
+    # size keeps fc6 small)
+    vgg = FasterRCNN(NUM_CLASSES, "vgg16", Config(DTYPE="float32", POOLING_SIZE=2),
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FasterRCNN(NUM_CLASSES, "vgg16", Config(), device="cpu")
+        vgg(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]), train=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FasterRCNN(NUM_CLASSES, "resnet50", Config(POOLING_MODE="crop"), device="cpu")
