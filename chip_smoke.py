@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rlobjectdetection_tpu_torch/csrc` with
-nvcc (sm_90a), all four in parallel. Then, for each of the two served
+nvcc (sm_90a), all five in parallel. Then, for each of the two served
 detectors (81 COCO classes, 800×1216, bf16 compute, seeded random weights)
 behind `Detector`:
 
@@ -18,10 +18,21 @@ that computes the same function, and holds the whole backbone with the
 kernels against the plain modules. RoIAlignAvg runs on both paths (1024
 and 512 channels).
 
+Then the RL box-refinement net (ResNet-101 trunk warm-started from the
+flagship, 56 actions, f32 params, bf16 compute, stem, layer1 and fused
+layer2/layer3 kernels): three refine requests of one 800×1216 image and 64
+boxes each through `Refiner`, then three `rl_train_step`s at batch 2 × 64
+boxes, with the launch counts set to 0 before the requests and read after
+the steps; the residual-stage kernel against its plain version and cuDNN at
+layer2's and layer3's shapes, the whole trunk and the action values with
+the kernels against the plain modules.
+
 Every phase raises on failure and the script exits non-zero: no CUDA, a
 kernel that does not build or launch, a kernel that disagrees with its plain
 version, a request that gives a wrong shape, non-finite values, no valid
-detection, or a kernel the requests did not launch. The line before the last
+detection, a train step whose loss is not finite, that moves the frozen
+trunk or leaves the head unchanged, or a kernel the path did not launch. The
+line before the last
 is the card's name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -82,6 +93,23 @@ VGG_BLOCK1_TOL = {torch.bfloat16: ONE_BF16_STEP, torch.float32: F32_TOL}
 # step; those differences carry through blocks 2-5: measured 9.90e-3 (mean
 # 6.4e-4) on an H100 (700 W), so the bound is 2e-2.
 VGG_BASE_FEAT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The fused layer2/layer3 kernel against its plain version in bf16: both
+# round the same f32 sums at the same points, but the sums run in other
+# orders, so an activation may round to the neighbouring bf16 value, and such
+# steps compound through the rounded intermediates of 4 and 23 blocks:
+# measured 6.849e-3 (layer2) and 1.914e-2 (layer3, 0.25 at a largest output
+# of 13) on an H100 (700 W), so the bound is 3e-2.
+RES_STAGE_TOL = {torch.bfloat16: 3e-2, torch.float32: F32_TOL}
+# The RL net's whole trunk with every kernel (stem, layer1, layer2-3) against
+# the plain modules, which round each conv output and each BN mul and add to
+# bf16 where the kernels fold BN in f32 and round once per conv: measured
+# 2.885e-2 (mean 1.8e-3) on an H100 (700 W), above the flagship's 2.333e-2
+# with the stem and layer1 kernels alone, so the bound is 4e-2. The action
+# values that trunk gives (the same RoIAlignAvg kernel, layer4 and fc on both
+# sides) measured 8.671e-3, so their bound is 2e-2.
+RL_BASE_FEAT_TOL = {torch.bfloat16: 4e-2, torch.float32: F32_TOL}
+RL_PRED_TOL = {torch.bfloat16: 2e-2, torch.float32: F32_TOL}
+RL_BOXES, RL_TRAIN_BATCH = 64, 2
 REPS, WARMUP = 20, 3
 
 
@@ -280,29 +308,53 @@ def roi_align_check(label, base_feat, rois, flush, bf16_plain_tol) -> dict:
         library_ms=None, bound_ms=b_roi, bound_by=f_roi)
 
 
-def base_check(label, base, data, tols) -> None:
-    """The whole backbone with its kernels against the plain modules."""
+@contextlib.contextmanager
+def plain_modules(base):
+    """The backbone without its kernels: the plain stem (and so the plain
+    layer1) and plain stages; restored after."""
+    saved = base.conv1_fused, getattr(base, "stages_fused", 0)
+    base.conv1_fused = False
+    if hasattr(base, "stages_fused"):
+        base.stages_fused = 0
+    try:
+        yield
+    finally:
+        base.conv1_fused = saved[0]
+        if hasattr(base, "stages_fused"):
+            base.stages_fused = saved[1]
+
+
+def kernels_vs_plain(label, fn, holders, tols) -> None:
+    """fn() with the kernels against fn() with the plain modules, in bf16
+    and in f32 (each holder's `dtype` set to it), max |diff| / max |plain|."""
     for dtype in (torch.bfloat16, torch.float32):
-        base.dtype = dtype
+        for h in holders:
+            h.dtype = dtype
         with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
-            got = base(data)
-            base.conv1_fused = False
-            want = base(data)
-            base.conv1_fused = True
+            got = fn()
+            with plain_modules(holders[-1]):
+                want = fn()
         torch.cuda.synchronize()
         tol = tols[dtype]
         _, rel = max_errs(got, want)
         mean_rel = ((got.float() - want.float()).abs().mean()
                     / want.float().abs().max()).item()
-        print(f"base_feat {str(dtype)[6:]} ({label} vs plain modules): "
+        print(f"{label} {str(dtype)[6:]} (kernels vs plain modules): "
               f"max rel {rel:.3e}, mean rel {mean_rel:.3e} (bound {tol:.2e})", flush=True)
-        check(rel <= tol, f"base_feat {label} {dtype}: max rel {rel:.3e} > {tol:.2e}")
-    base.dtype = torch.bfloat16
+        check(rel <= tol, f"{label} {dtype}: max rel {rel:.3e} > {tol:.2e}")
+    for h in holders:
+        h.dtype = torch.bfloat16
 
 
-def flagship(cfg, images) -> tuple[dict, dict]:
+def base_check(label, base, data, tols) -> None:
+    """The whole backbone with its kernels against the plain modules."""
+    kernels_vs_plain(f"base_feat ({label})", lambda: base(data), [base], tols)
+
+
+def flagship(cfg, images) -> tuple[dict, dict, dict]:
     """ResNet-101 C4: three requests, stages, the stem, layer1 and
-    RoIAlignAvg kernels against their plain versions, the whole C4 base."""
+    RoIAlignAvg kernels against their plain versions, the whole C4 base.
+    Returns the kernels' results, the launch counts and the state dict."""
     from rlobjectdetection_tpu_torch.engine.serve import Detector
     from rlobjectdetection_tpu_torch.models import FasterRCNN
     from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
@@ -387,7 +439,8 @@ def flagship(cfg, images) -> tuple[dict, dict]:
         # the whole C4 base: kernel stem + layer1 against the plain modules
         check(bool(torch.isfinite(base_feat.float()).all()), "base_feat is not finite")
         base_check("stem+layer1 kernels", base, data, BASE_FEAT_TOL)
-    return results, launches
+    # on the host, so the VGG-16 path's peak memory stays its own
+    return results, launches, {k: v.cpu() for k, v in model.state_dict().items()}
 
 
 def vgg16(cfg, images) -> tuple[dict, dict]:
@@ -451,6 +504,215 @@ def vgg16(cfg, images) -> tuple[dict, dict]:
     return results, launches
 
 
+def rl_batch(rng, n_images: int) -> dict:
+    """A collated RL batch at 800×1216: RGB pixels through the port's
+    normalisation, 64 boxes per image drawn as `bench.py::make_rl_step`
+    draws them, targets ±1 and weights U(0.5, 1.5)."""
+    from rlobjectdetection_tpu_torch.config import RLConfig
+    from rlobjectdetection_tpu_torch.data.rl_coco import collate, normalize_image
+
+    cfg, (h, w), n = RLConfig(), BLOB_SHAPE[1:3], RL_BOXES
+    bw, bh = min(190, w // 4), min(190, h // 4)
+    samples = []
+    for i in range(n_images):
+        img = normalize_image(rng.randint(0, 256, (h, w, 3)), cfg.normalize_mean,
+                              cfg.normalize_std)
+        x1 = rng.randint(0, w - bw - 1, n)
+        y1 = rng.randint(0, h - bh - 1, n)
+        x2 = x1 + rng.randint(min(30, bw // 2), bw, n)
+        y2 = y1 + rng.randint(min(30, bh // 2), bh, n)
+        boxes = np.stack([x1, y1, x2, y2, np.full(n, 0.9), np.ones(n), np.full(n, i)], 1)
+        labels = np.stack(np.broadcast_arrays(
+            np.arange(56)[None, :], rng.choice([-1.0, 1.0], (n, 56)),
+            rng.rand(n, 56) + 0.5), -1)
+        samples.append((img, boxes.astype(np.float32), labels.astype(np.float32),
+                        [h, w, 1.0, h, w, f"synthetic-{i}"]))
+    return collate(samples, 56)
+
+
+def rl_net(det_state: dict) -> tuple[dict, dict]:
+    """The RL refinement net: three refine requests and three train steps
+    with the launch counts read over both, one request's stages, the
+    residual-stage kernel against its plain version at layer2's and
+    layer3's shapes, the whole trunk and the action values against the plain
+    modules."""
+    from rlobjectdetection_tpu_torch.config import RLConfig
+    from rlobjectdetection_tpu_torch.engine.rl import (Refiner, make_rl_optimizer,
+                                                       rl_train_step)
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
+    from rlobjectdetection_tpu_torch.models.rl import Action, RLPolicyNet, warm_start_from_detector
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, res_stage_kernel,
+                                                 roi_align_kernel, stem_kernel)
+
+    dev = torch.device("cuda")
+    cfg = RLConfig()
+    model = RLPolicyNet(56, 101, torch.bfloat16, conv1_fused=True, layer1_fused=True,
+                        stages_fused=23, device=dev, seed=3)
+    model.load_state_dict(warm_start_from_detector(model.state_dict(), det_state))
+    copied = [k for k in det_state if k.startswith(("base.", "head."))]
+    state = model.state_dict()
+    check(all(torch.equal(state[k].cpu(), det_state[k]) for k in copied),
+          "warm start: the trunk and layer4 are not the detector's")
+    n_params = sum(t.numel() for t in state.values())
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"model: RL policy net, resnet101 trunk + stride-1 layer4, 56 actions, {n_params} "
+          f"parameters (params + frozen-BN statistics), {n_train} trained, "
+          f"{len(copied)} tensors warm-started from the flagship, compute bfloat16", flush=True)
+    action = Action(cfg.act_delta, iou_thres=cfg.act_iou_thres)
+    refiner = Refiner(model, action, maxk=1)
+    counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                "roi_align_avg": roi_align_kernel.roi_align_avg,
+                "res_stage": res_stage_kernel.fused_res_stage}
+    rng = np.random.RandomState(3)
+    requests = [rl_batch(rng, 1) for _ in range(3)]
+    train_batch = rl_batch(rng, RL_TRAIN_BATCH)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    latencies = []
+    for i, batch in enumerate(requests):
+        before = {k: f.launches for k, f in counters.items()}
+        t0 = time.perf_counter()
+        pred, moved, prec = refiner(batch)
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        check(pred.shape == (1, RL_BOXES, 56) and np.isfinite(pred).all(),
+              f"rl request {i}: pred {pred.shape}, finite {np.isfinite(pred).all()}")
+        check(len(moved) == 1 and moved[0].shape == (RL_BOXES, 4) and np.isfinite(moved[0]).all(),
+              f"rl request {i}: moved boxes {[m.shape for m in moved]}")
+        xyxy = batch["bboxes"][0, :, 1:5]
+        xywh = np.concatenate([xyxy[:, :2], xyxy[:, 2:] - xyxy[:, :2]], 1)
+        moved_n = int((moved[0] != xywh).any(1).sum())
+        delta = {k: f.launches - before[k] for k, f in counters.items()}
+        check(all(delta.values()), f"rl request {i}: kernel launch counts moved {delta}")
+        print(f"rl request {i}: {BLOB_SHAPE[1]}x{BLOB_SHAPE[2]}, {RL_BOXES} boxes -> pred {pred.shape}, max |pred| "
+              f"{np.abs(pred).max():.3f}, precision@1 {prec:.1f}, {moved_n} box moved, "
+              f"{latencies[-1]:.2f} ms, launches {delta}", flush=True)
+    peak_refine = torch.cuda.max_memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    opt, sched = make_rl_optimizer(model, cfg, steps_per_epoch=100)
+    inputs = [torch.from_numpy(train_batch[k]).to(dev) for k in ("data", "bboxes")]
+    inputs += [torch.from_numpy(np.ascontiguousarray(train_batch["labels"][..., j])).to(dev)
+               for j in (1, 2)]
+    inputs.append(torch.from_numpy(train_batch["num_dts"]).to(dev))
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    step_ms, losses = [], []
+    for step in range(3):
+        t0 = time.perf_counter()
+        loss, noweight = rl_train_step(model, opt, sched, *inputs)
+        loss, noweight = float(loss), float(noweight)      # ends in a device sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        check(np.isfinite(loss) and np.isfinite(noweight), f"rl train step {step}: loss {loss}")
+    state = model.state_dict()
+    frozen_moved = [k for k in state if k.startswith("base.") and not torch.equal(state[k], state0[k])]
+    check(not frozen_moved, f"rl train: frozen trunk tensors changed: {frozen_moved[:4]}")
+    trained = ["fc.weight", "fc.bias", "fc8.weight", "fc8.bias"] + [
+        f"head.layer4.block{b}.{bn}.{leaf}" for b in range(3) for bn in ("bn1", "bn2", "bn3")
+        for leaf in ("scale", "bias")]
+    unchanged = [k for k in trained if torch.equal(state[k], state0[k])]
+    check(not unchanged, f"rl train: head tensors unchanged: {unchanged}")
+    stats_moved = [k for k in state if k.endswith((".mean", ".var"))
+                   and not torch.equal(state[k], state0[k])]
+    check(not stats_moved, f"rl train: BN statistics changed: {stats_moved[:4]}")
+    launches = {k: f.launches for k, f in counters.items()}
+    check(all(launches.values()), f"rl: a kernel of the path was not launched: {launches}")
+    print(f"rl path: 3 refine requests, latency ms {[round(t, 3) for t in latencies]}, peak "
+          f"memory {peak_refine} bytes; 3 train steps at batch {RL_TRAIN_BATCH} x {RL_BOXES} "
+          f"boxes, step ms {[round(t, 3) for t in step_ms]}, loss {[round(v, 4) for v in losses]}, "
+          f"peak memory {torch.cuda.max_memory_allocated()} bytes; trunk ({sum(k.startswith('base.') for k in state)} "
+          f"tensors) bit-identical, {len(trained)} head tensors changed; launches {launches}",
+          flush=True)
+    del opt, sched, state0
+
+    # one request's stages, each ended by a device sync
+    batch = requests[0]
+    data = torch.from_numpy(batch["data"]).to(dev)
+    bboxes = torch.from_numpy(batch["bboxes"]).to(dev)
+    rois = bboxes.reshape(-1, 8)[:, :5].contiguous()
+    stages, t = {}, 0.0
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        stages[name] = round((time.perf_counter() - t) * 1e3, 3)
+        t = time.perf_counter()
+
+    with torch.no_grad():
+        for _ in range(2):                      # the second pass is the one kept
+            t = time.perf_counter()
+            feat = model.base(data)
+            lap("trunk (stem, layer1, layer2-3 kernels)")
+            roi_feat = roi_align_kernel.roi_align_avg(feat, rois)
+            lap("roi_align_avg")
+            pred = model.fc(torch.relu(model.fc8(model.head(roi_feat)))).float()
+            lap("head + fc (layer4, fc8, fc)")
+            p = pred.cpu().numpy().reshape(1, RL_BOXES, 56)
+            xywh = batch["bboxes"][..., 1:5].copy()
+            xywh[..., 2:] -= xywh[..., :2]
+            action.move_from_act(xywh, p, batch["labels"][..., 1], 1)
+            lap("move (copy to the host, teacher-forced top-1 move)")
+    print(f"rl request stages ms: {stages}", flush=True)
+
+    # the residual-stage kernel at the shapes the requests gave it
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    base = model.base
+    bf16, f32 = torch.bfloat16, torch.float32
+    err_abs = err_rel = 0.0
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0)
+    with torch.no_grad():
+        bn = base.bn1
+        stem_w = (base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var)
+        full = layer1_kernel.fused_layer1(stem_kernel.fused_stem(data, *stem_w, dtype=bf16),
+                                          base.layer1, dtype=bf16)
+        for name, layer in (("layer2", base.layer2), ("layer3", base.layer3)):
+            x = full[:, ::2, ::2].contiguous()
+            width, blocks = layer.planes, layer.blocks
+            run = lambda xi, dtype: res_stage_kernel.fused_res_stage(
+                xi, layer, blocks=blocks, width=width, dtype=dtype)
+            packed = res_stage_kernel.pack_res_stage(layer, blocks, width, bf16)
+            out = run(x, bf16)
+            a, r = parity(f"res_stage {name} {tuple(x.shape)}", bf16, out,
+                          res_stage_kernel.res_stage_plain(x, packed, bf16), RES_STAGE_TOL[bf16])
+            err_abs, err_rel = max(err_abs, a), max(err_rel, r)
+            with full_f32():
+                parity(f"res_stage {name}", f32, run(x.float(), f32),
+                       res_stage_kernel.res_stage_plain(
+                           x.float(), res_stage_kernel.pack_res_stage(layer, blocks, width, f32),
+                           f32), RES_STAGE_TOL[f32])
+            cin, ho, wo = x.shape[-1], x.shape[1], x.shape[2]
+            macs = (cin * width + 9 * width * width + 4 * width * width + cin * 4 * width
+                    + (blocks - 1) * (4 * width * width + 9 * width * width + 4 * width * width))
+            weights = [v for pk in packed for v in pk.values() if v is not None]
+            b_ms, b_by = bound(nbytes(x, out, *weights), 2.0 * ho * wo * macs, BF16_TENSOR_FLOPS)
+            full_nchw = nhwc_to_nchw(full)
+            r = dict(ms=time_ms(lambda: run(x, bf16), flush),
+                     plain_ms=time_ms(lambda: res_stage_kernel.res_stage_plain(x, packed, bf16),
+                                      flush),
+                     library_ms=time_ms(lambda: layer(full_nchw), flush))
+            print(f"res_stage {name}: {blocks} blocks, {2.0 * ho * wo * macs / 1e9:.3f} GFLOP, "
+                  f"kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
+                  f"{r['library_ms']:.4f} (cuDNN ResLayer, channels-last bf16), bound_ms "
+                  f"{b_ms:.4f} ({b_by})", flush=True)
+            for k in ("ms", "plain_ms", "library_ms"):
+                totals[k] += r[k]
+            totals["flops"] += 2.0 * ho * wo * macs
+            totals["nbytes"] += nbytes(x, out, *weights)
+            full = out
+        b_ms, b_by = bound(totals["nbytes"], totals["flops"], BF16_TENSOR_FLOPS)
+        results = {"res_stage": dict(err=(err_abs, err_rel), ms=totals["ms"],
+                                     plain_ms=totals["plain_ms"],
+                                     library_ms=totals["library_ms"], bound_ms=b_ms,
+                                     bound_by=b_by)}
+
+        # the whole trunk, and the action values, kernels against plain modules
+        kernels_vs_plain("rl base_feat", lambda: base(data), [base], RL_BASE_FEAT_TOL)
+        kernels_vs_plain("rl pred", lambda: model(data, bboxes)[0], [model, base], RL_PRED_TOL)
+    return results, launches
+
+
 def report(name, r, launches, label=None) -> None:
     print(f"{label or name}: kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
           f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, "
@@ -483,24 +745,34 @@ def main() -> None:
     cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"])
     rng = np.random.RandomState(0)
     images = [rng.randint(0, 256, (h, w, 3)).astype(np.float32) for h, w in IMAGE_SIZES]
-    results, launches = flagship(cfg, images)
+    results, launches, det_state = flagship(cfg, images)
     torch.cuda.empty_cache()
     vgg_results, vgg_launches = vgg16(cfg, images)
+    torch.cuda.empty_cache()
 
-    # 4. the kernels line: launches over both paths' requests
+    # 4. the RL refinement net, warm-started from the flagship
+    rl_results, rl_launches = rl_net(det_state)
+
+    # 5. the kernels line: launches over both detectors' requests, and over
+    # the RL path's requests and train steps for the residual stage
     roi_launches = launches["roi_align_avg"] + vgg_launches["roi_align_avg"]
     results["vgg_block1"] = vgg_results["vgg_block1"]
-    launches = dict(launches, vgg_block1=vgg_launches["vgg_block1"], roi_align_avg=roi_launches)
+    results["res_stage"] = rl_results["res_stage"]
+    launches = dict(launches, vgg_block1=vgg_launches["vgg_block1"], roi_align_avg=roi_launches,
+                    res_stage=rl_launches["res_stage"])
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
                "layer1": ("csrc/layer1.cu", "rlobjectdetection_tpu/ops/layer1_pallas.py:317"),
                "roi_align_avg": ("csrc/roi_align.cu",
                                  "rlobjectdetection_tpu/ops/roi_align_pallas.py:108"),
                "vgg_block1": ("csrc/vgg_block1.cu",
-                              "rlobjectdetection_tpu/ops/vgg_stem_pallas.py:270")}
+                              "rlobjectdetection_tpu/ops/vgg_stem_pallas.py:270"),
+               "res_stage": ("csrc/res_stage.cu",
+                             "rlobjectdetection_tpu/ops/res_stage_pallas.py:284")}
+    where = {"roi_align_avg": "in 6 requests",
+             "res_stage": "in 3 RL requests and 3 RL train steps (layer2 + layer3)"}
     kernels = []
     for name, r in results.items():
-        report(name, r, f"{launches[name]} in 6 requests" if name == "roi_align_avg"
-               else f"{launches[name]} in 3 requests",
+        report(name, r, f"{launches[name]} {where.get(name, 'in 3 requests')}",
                "roi_align_avg C=1024" if name == "roi_align_avg" else None)
         kernels.append({"name": name, "route": "cuda",
                         "source": "rlobjectdetection_tpu_torch/" + sources[name][0],

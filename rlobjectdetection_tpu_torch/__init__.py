@@ -5,7 +5,7 @@ reference: public functions keep its layouts (images `[B, H, W, 3]`, NHWC
 feature maps, RPN maps `[B, H, W, 2A]` / `[B, H, W, 4A]`, rois `[B, R, 5]`),
 so the two can be held against each other on the same inputs.
 
-Every TPU kernel on the serving path is a hand-written CUDA kernel here
+Every TPU kernel of the JAX package is a hand-written CUDA kernel here
 (`csrc/*.cu`, built with nvcc for sm_90a at first use, see `ops/_build.py`).
 Entry points run on the GPU unless the caller passes `device="cpu"`.
 """

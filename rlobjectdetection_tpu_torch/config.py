@@ -6,9 +6,9 @@ config (code defaults ← YAML `cfg_from_file` ← CLI `cfg_from_list`) with the
 same key names, so `--set TRAIN.SCALES ...` overrides and config files mean
 the same thing to both packages.
 
-In the port, `CONV1_FUSED` / `LAYER1_FUSED` select the hand-written CUDA stem
-and layer1 kernels (their plain PyTorch versions on CPU tensors);
-`STEM_INTERPRET` has no meaning here. `ALIGN_IMPL` is kept for the training
+In the port, `CONV1_FUSED` / `LAYER1_FUSED` / `STAGE_FUSED` select the
+hand-written CUDA stem, layer1 and layer2/layer3 kernels (their plain PyTorch
+versions on CPU tensors); `STEM_INTERPRET` has no meaning here. `ALIGN_IMPL` is kept for the training
 slice: every value computes the same RoIAlignAvg forward.
 """
 

@@ -1,1 +1,2 @@
-"""Post-processing, the weight bridge from the JAX package, and serving."""
+"""Post-processing, the weight bridge from the JAX package, serving, and the
+RL refinement steps."""

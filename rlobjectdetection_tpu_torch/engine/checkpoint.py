@@ -5,8 +5,10 @@ per param path, e.g. `base/layer1/block0/conv1/kernel` `[1, 1, 64, 64]`,
 `head/layer4/block0/bn3/var`, `rpn/RPN_Conv/bias`, `RCNN_cls_score/kernel`
 `[2048, 81]`. The port's modules carry the same names, so a key maps by
 `/` → `.` and `kernel` → `weight`; conv kernels go HWIO → OIHW and dense
-kernels `[in, out]` → `[out, in]`; BN scale/bias/mean/var are buffers. The
-fused and plain stems share one param tree, so one mapping serves both.
+kernels `[in, out]` → `[out, in]`; BN scale/bias/mean/var are buffers, or
+for the RL net's layer4 (`RLPolicyNet`, whose BN affine trains) scale/bias
+are parameters under the same keys. The fused and plain stems and stages
+share one param tree, so one mapping serves both.
 """
 
 from __future__ import annotations

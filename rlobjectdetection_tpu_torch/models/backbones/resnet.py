@@ -14,9 +14,12 @@ Public tensors are NHWC like the JAX package's. Inside, convs take NCHW
 views of NHWC memory (PyTorch's channels-last format), so no layout copy is
 made between the NHWC kernels and cuDNN's convs. With `conv1_fused` the stem
 is the CUDA kernel of `ops/stem_kernel.py`, and with `layer1_fused` as well
-layer1 is `ops/layer1_kernel.py` (the gating of the JAX `ResNetBase`: the
-fused layer1 consumes the fused stem's output). Layers 2–4 are plain convs,
-as the JAX package leaves them to XLA.
+layer1 is `ops/layer1_kernel.py` (the fused layer1 consumes the fused stem's
+output). `stages_fused` (digit-coded 2, 3 or 23) runs layer2 / layer3
+through `ops/res_stage_kernel.py`. The forward-only kernels engage as in the
+JAX `ResNetBase`: layer1 and stage n only where they take no gradient,
+i.e. `frozen_stages >= n` or the caller passes `fwd_only=True`. Layer4 and
+the unfused stages are plain convs, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.layer1_kernel import fused_layer1
+from ...ops.res_stage_kernel import fused_res_stage
 from ...ops.stem_kernel import fused_stem
 
 LAYER_SPECS = {
@@ -67,13 +71,21 @@ def conv(cin, cout, k, stride=1, bias=False):
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm with frozen statistics on NCHW input: y = x*mul + add."""
+    """BatchNorm with frozen statistics on NCHW input: y = x*mul + add.
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    scale/bias/mean/var are buffers; with `affine_trainable` (the RL net's
+    layer4) scale and bias are parameters under the same state-dict keys,
+    and the statistics stay buffers."""
+
+    def __init__(self, features: int, eps: float = 1e-5, affine_trainable: bool = False):
         super().__init__()
         self.eps = eps
-        self.register_buffer("scale", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        if affine_trainable:
+            self.scale = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_buffer("scale", torch.ones(features))
+            self.register_buffer("bias", torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
@@ -93,18 +105,19 @@ class Bottleneck(nn.Module):
     """1×1 → 3×3 → 1×1 bottleneck, expansion 4, stride on the 1×1 conv1."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, bn_affine_trainable: bool = False):
         super().__init__()
+        bn = lambda f: FrozenBatchNorm(f, affine_trainable=bn_affine_trainable)
         self.conv1 = conv(inplanes, planes, 1, stride)
-        self.bn1 = FrozenBatchNorm(planes)
+        self.bn1 = bn(planes)
         self.conv2 = conv(planes, planes, 3)
-        self.bn2 = FrozenBatchNorm(planes)
+        self.bn2 = bn(planes)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = FrozenBatchNorm(planes * 4)
+        self.bn3 = bn(planes * 4)
         self.downsample = downsample
         if downsample:
             self.downsample_conv = conv(inplanes, planes * 4, 1, stride)
-            self.downsample_bn = FrozenBatchNorm(planes * 4)
+            self.downsample_bn = bn(planes * 4)
 
     def forward(self, x):
         out = torch.relu(self.bn1(self.conv1(x)))
@@ -118,12 +131,16 @@ class ResLayer(nn.Module):
     """A residual stage: strided block0 with downsample + identity blocks,
     as attributes `block0`, `block1`, ... (the JAX param names)."""
 
-    def __init__(self, inplanes: int, planes: int, blocks: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, blocks: int, stride: int = 1,
+                 bn_affine_trainable: bool = False):
         super().__init__()
         self.blocks = blocks
-        self.block0 = Bottleneck(inplanes, planes, stride, downsample=True)
+        self.planes = planes
+        self.block0 = Bottleneck(inplanes, planes, stride, downsample=True,
+                                 bn_affine_trainable=bn_affine_trainable)
         for i in range(1, blocks):
-            setattr(self, f"block{i}", Bottleneck(planes * 4, planes))
+            setattr(self, f"block{i}", Bottleneck(planes * 4, planes,
+                                                  bn_affine_trainable=bn_affine_trainable))
 
     def forward(self, x):
         for i in range(self.blocks):
@@ -132,45 +149,76 @@ class ResLayer(nn.Module):
 
 
 class ResNetBase(nn.Module):
-    """conv1..layer3: `[B, H, W, 3]` → `[B, H/16, W/16, 1024]`, both NHWC."""
+    """conv1..layer3: `[B, H, W, 3]` → `[B, H/16, W/16, 1024]`, both NHWC.
+
+    `frozen_stages` (RESNET.FIXED_BLOCKS): conv1 and layer1..layer n for
+    n = frozen_stages take no gradient. Their parameters are made
+    requires_grad=False and the activation is detached after layer n, as the
+    JAX module's stop_gradient cuts it, so autograd keeps no graph there."""
 
     def __init__(self, num_layers: int = 101, dtype: torch.dtype = torch.float32,
-                 conv1_fused: bool = False, layer1_fused: bool = False):
+                 conv1_fused: bool = False, layer1_fused: bool = False,
+                 stages_fused: int = 0, frozen_stages: int = 1):
         super().__init__()
+        if stages_fused not in (0, 2, 3, 23):
+            raise ValueError(f"stages_fused must be one of 0/2/3/23 (digit-coded), got "
+                             f"{stages_fused!r}")
         specs = LAYER_SPECS[num_layers]
         self.dtype = dtype
         self.conv1_fused = conv1_fused
         self.layer1_fused = layer1_fused
+        self.stages_fused = stages_fused
+        self.frozen_stages = frozen_stages
         self.conv1 = conv(3, 64, 7, 2)
         self.bn1 = FrozenBatchNorm(64)
         self.layer1 = ResLayer(64, 64, specs[0], 1)
         self.layer2 = ResLayer(256, 128, specs[1], 2)
         self.layer3 = ResLayer(512, 256, specs[2], 2)
+        for frozen in (self.conv1, self.layer1, self.layer2, self.layer3)[:1 + min(frozen_stages, 3)]:
+            frozen.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _cut(self, x: torch.Tensor, stage: int) -> torch.Tensor:
+        return x.detach() if min(self.frozen_stages, 3) == stage else x
+
+    def _stage(self, layer: ResLayer, x: torch.Tensor, fuse: bool) -> torch.Tensor:
+        """A stride-2 stage on NCHW (channels-last) x; fused, it runs on the
+        even-coordinate grid its 1×1 stride-2 entry reads."""
+        if not fuse:
+            return layer(x)
+        xs = nchw_to_nhwc(x)[:, ::2, ::2].contiguous()
+        return nhwc_to_nchw(fused_res_stage(xs, layer, blocks=layer.blocks,
+                                            width=layer.planes, dtype=self.dtype))
+
+    def forward(self, x: torch.Tensor, fwd_only: bool = False) -> torch.Tensor:
+        fuse = lambda n: self.frozen_stages >= n or fwd_only
         if self.conv1_fused:
             bn = self.bn1
             x = fused_stem(x.contiguous(), self.conv1.weight, bn.scale, bn.bias,
                            bn.mean, bn.var, dtype=self.dtype)      # NHWC
-            if self.layer1_fused:
-                x = fused_layer1(x, self.layer1, dtype=self.dtype)
-                x = nhwc_to_nchw(x)
+            x = nhwc_to_nchw(self._cut(x, 0))
+            if self.layer1_fused and fuse(1):
+                x = nhwc_to_nchw(fused_layer1(nchw_to_nhwc(x), self.layer1, dtype=self.dtype))
             else:
-                x = self.layer1(nhwc_to_nchw(x))
+                x = self.layer1(x)
         else:
             x = nhwc_to_nchw(x.to(self.dtype))
-            x = ceil_max_pool(torch.relu(self.bn1(self.conv1(x))))
+            x = self._cut(ceil_max_pool(torch.relu(self.bn1(self.conv1(x)))), 0)
             x = self.layer1(x)
-        x = self.layer3(self.layer2(x))
-        return nchw_to_nhwc(x)
+        x = self._cut(x, 1)
+        x = self._cut(self._stage(self.layer2, x, "2" in str(self.stages_fused) and fuse(2)), 2)
+        x = self._stage(self.layer3, x, "3" in str(self.stages_fused) and fuse(3))
+        return nchw_to_nhwc(self._cut(x, 3))
 
 
 class ResNetHead(nn.Module):
-    """layer4 + spatial mean: pooled `[R, P, P, 1024]` NHWC → `[R, 2048]`."""
+    """layer4 + spatial mean: pooled `[R, P, P, 1024]` NHWC → `[R, 2048]`.
+    The RL net's head has stride 1 and a trainable layer4 BN affine."""
 
-    def __init__(self, num_layers: int = 101, stride: int = 2):
+    def __init__(self, num_layers: int = 101, stride: int = 2,
+                 bn_affine_trainable: bool = False):
         super().__init__()
-        self.layer4 = ResLayer(1024, 512, LAYER_SPECS[num_layers][3], stride)
+        self.layer4 = ResLayer(1024, 512, LAYER_SPECS[num_layers][3], stride,
+                               bn_affine_trainable=bn_affine_trainable)
 
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:
         return self.layer4(nhwc_to_nchw(pooled)).mean(dim=(2, 3))

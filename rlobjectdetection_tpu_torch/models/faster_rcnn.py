@@ -54,7 +54,9 @@ class FasterRCNN(nn.Module):
         elif backbone.startswith("resnet"):
             layers = int(backbone[len("resnet"):])
             self.base = ResNetBase(layers, self.dtype, conv1_fused=cfg.CONV1_FUSED,
-                                   layer1_fused=cfg.LAYER1_FUSED)
+                                   layer1_fused=cfg.LAYER1_FUSED,
+                                   stages_fused=cfg.STAGE_FUSED,
+                                   frozen_stages=cfg.RESNET.FIXED_BLOCKS)
             self.head = ResNetHead(layers)
             base_ch, head_ch = 1024, 2048
         else:
@@ -96,13 +98,16 @@ class FasterRCNN(nn.Module):
             raise NotImplementedError(
                 "the train forward (targets, losses, train step) is the training "
                 "slice, ROADMAP.md §1 item 11")
-        base_feat = self.base(im_data)
+        # eval takes no gradient, so the frozen-stage kernels (STAGE_FUSED)
+        # engage whatever FIXED_BLOCKS says, as in the JAX model
+        base_feat = (self.base(im_data, fwd_only=True) if isinstance(self.base, ResNetBase)
+                     else self.base(im_data))
         rois, _, roi_valid = self.proposals(base_feat, im_info)
         cls_prob, bbox_pred = self.detect_head(base_feat, rois)
         return dict(rois=rois, roi_valid=roi_valid, cls_prob=cls_prob, bbox_pred=bbox_pred)
 
 
-def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
     """lecun_normal as the JAX model draws it: truncated normal (±2σ) of
     variance 1/fan_in."""
     fan_in = w[0].numel()
@@ -125,6 +130,6 @@ def init_weights(model: FasterRCNN, seed: int) -> None:
         elif name == "RCNN_bbox_pred":
             nn.init.normal_(mod.weight, 0.0, 0.001, generator=gen)
         else:
-            _lecun_normal_(mod.weight, gen)
+            lecun_normal_(mod.weight, gen)
         if mod.bias is not None:
             mod.bias.zero_()

@@ -16,3 +16,10 @@ def bn_mul_add(scale, bias, mean, var, eps: float = 1e-5):
     mul = scale.float() * inv
     add = bias.float() - mean.float() * mul
     return mul, add
+
+
+def fold_conv_bn(conv, bn, eps: float = 1e-5):
+    """A conv's weight (OIHW) scaled per output channel by its BN's mul, in
+    f32, and that BN's add."""
+    mul, add = bn_mul_add(bn.scale, bn.bias, bn.mean, bn.var, eps)
+    return conv.weight.float() * mul[:, None, None, None], add

@@ -14,19 +14,12 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
-from .bn_fold import bn_mul_add
+from .bn_fold import fold_conv_bn
+from .res_stage_kernel import res_stage_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _fold(conv, bn, eps):
-    """Conv weight (OIHW) scaled per output channel by its BN's mul (f32),
-    and that BN's add."""
-    mul, add = bn_mul_add(bn.scale, bn.bias, bn.mean, bn.var, eps)
-    return conv.weight.float() * mul[:, None, None, None], add
 
 
 def pack_layer1(layer, dtype: torch.dtype, eps: float = 1e-5) -> list[dict]:
@@ -38,12 +31,12 @@ def pack_layer1(layer, dtype: torch.dtype, eps: float = 1e-5) -> list[dict]:
     packed = []
     for i in range(3):
         blk = getattr(layer, f"block{i}")
-        w1, b1 = _fold(blk.conv1, blk.bn1, eps)
-        w2, b2 = _fold(blk.conv2, blk.bn2, eps)
-        w3, b3 = _fold(blk.conv3, blk.bn3, eps)
+        w1, b1 = fold_conv_bn(blk.conv1, blk.bn1, eps)
+        w2, b2 = fold_conv_bn(blk.conv2, blk.bn2, eps)
+        w3, b3 = fold_conv_bn(blk.conv3, blk.bn3, eps)
         wd = None
         if i == 0:
-            wd, bd = _fold(blk.downsample_conv, blk.downsample_bn, eps)
+            wd, bd = fold_conv_bn(blk.downsample_conv, blk.downsample_bn, eps)
             wd = wd[:, :, 0, 0].t().contiguous().to(dtype)
             b3 = b3 + bd
         packed.append(dict(
@@ -54,29 +47,13 @@ def pack_layer1(layer, dtype: torch.dtype, eps: float = 1e-5) -> list[dict]:
     return packed
 
 
-def _block_plain(x: torch.Tensor, pk: dict, dtype: torch.dtype) -> torch.Tensor:
-    """One folded bottleneck on NCHW f32 values that are `dtype`-exact; the
-    kernel's arithmetic: f32 sums, intermediates rounded to `dtype`."""
-    rnd = lambda t: t.to(dtype).float()
-    w1 = pk["w1"].float().t()[:, :, None, None]
-    w2 = pk["w2"].float().reshape(3, 3, 64, 64).permute(3, 2, 0, 1)
-    w3 = pk["w3"].float().t()[:, :, None, None]
-    a1 = rnd(torch.relu(F.conv2d(x, w1) + pk["b1"][:, None, None]))
-    a2 = rnd(torch.relu(F.conv2d(a1, w2, padding=1) + pk["b2"][:, None, None]))
-    y = F.conv2d(a2, w3) + pk["b3"][:, None, None]
-    if pk["wd"] is not None:
-        y = y + F.conv2d(x, pk["wd"].float().t()[:, :, None, None])
-    else:
-        y = y + x
-    return rnd(torch.relu(y))
-
-
 def layer1_plain(x: torch.Tensor, packed: list[dict], dtype: torch.dtype) -> torch.Tensor:
-    """Plain version: x `[B, H, W, 64]` NHWC → `[B, H, W, 256]` in `dtype`."""
-    y = x.to(dtype).float().permute(0, 3, 1, 2)
-    for pk in packed:
-        y = _block_plain(y, pk, dtype)
-    return y.permute(0, 2, 3, 1).to(dtype).contiguous()
+    """Plain version: x `[B, H, W, 64]` NHWC → `[B, H, W, 256]` in `dtype`;
+    the residual stage's plain arithmetic on the weights transposed to its
+    [N][K] layout."""
+    t = lambda w: None if w is None else w.t()
+    return res_stage_plain(x, [dict(pk, w1=t(pk["w1"]), w2=pk["w2"].transpose(1, 2),
+                                    w3=t(pk["w3"]), wd=t(pk["wd"])) for pk in packed], dtype)
 
 
 def _entry():

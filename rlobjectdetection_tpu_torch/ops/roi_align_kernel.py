@@ -5,7 +5,8 @@ roi_align_fwd_pallas` + `roi_align_avg_pallas`. In eval every ALIGN_IMPL
 computes this same forward, so on a CUDA tensor the port's RoIAlignAvg is
 the hand-written kernel `csrc/roi_align.cu` whatever ALIGN_IMPL says; on a
 CPU tensor it is the plain `ops/roi_align.py::roi_align_avg`. There is no
-backward here: the serving path takes no gradient.
+backward here: the serving path takes no gradient, and in the RL net its
+input is the frozen trunk's output.
 """
 
 from __future__ import annotations

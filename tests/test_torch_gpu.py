@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
-from rlobjectdetection_tpu_torch.ops import (layer1_kernel, roi_align, roi_align_kernel,
-                                             stem_kernel, vgg_block1_kernel)
+from rlobjectdetection_tpu_torch.ops import (layer1_kernel, res_stage_kernel, roi_align,
+                                             roi_align_kernel, stem_kernel, vgg_block1_kernel)
 
 
 def max_rel(got, want):
@@ -115,6 +115,63 @@ def test_vgg_block1_kernel_matches_plain(cuda, dtype, tol):
     assert vgg_block1_kernel.fused_vgg_block1.launches == n0 + 1
     assert got.dtype == dtype and tuple(got.shape) == (2, 18, 26, 64)
     assert max_rel(got, vgg_block1_kernel.vgg_block1_plain(x, w1, b1, w2, b2, dtype=dtype)) < tol
+
+
+# bf16: kernel and plain version round the same f32 sums at the same points,
+# but the sums run in other orders, so an activation may round to the
+# neighbouring bf16 value, and such steps compound through the blocks' rounded
+# intermediates (layer1's 1.28e-2 over three blocks is the same event).
+RES_STAGE_BF16_TOL = 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,width,cin,blocks,stride", [
+    (2, 26, 42, 128, 256, 3, 2),    # layer2-like: stride-2 entry, 13x21 output, partial tiles
+    (2, 11, 19, 256, 512, 2, 1),    # layer3 width, stride-1 entry, partial tiles
+    (1, 18, 9, 256, 1024, 2, 1),    # identity-width input to block0, one column of tiles
+])
+def test_res_stage_kernel_matches_plain(cuda, dtype, b, h, w, width, cin, blocks, stride):
+    rng = np.random.RandomState(width + h)
+    layer = ResLayer(cin, width, blocks, stride).requires_grad_(False)
+    _randomize_bn(layer, rng)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.mul_(4.0)   # keep activations O(1) through the blocks
+    layer = layer.to(cuda)
+    x = torch.from_numpy(np.abs(rng.randn(b, h, w, cin)).astype(np.float32)).to(cuda, dtype)
+    xs = x[:, ::stride, ::stride].contiguous()
+    n0 = res_stage_kernel.fused_res_stage.launches
+    got = res_stage_kernel.fused_res_stage(xs, layer, blocks=blocks, width=width, dtype=dtype)
+    torch.cuda.synchronize()
+    assert res_stage_kernel.fused_res_stage.launches == n0 + blocks
+    assert got.dtype == dtype and tuple(got.shape) == (*xs.shape[:3], 4 * width)
+    want = res_stage_kernel.res_stage_plain(
+        xs, res_stage_kernel.pack_res_stage(layer, blocks, width, dtype), dtype)
+    assert float(want.float().abs().max()) > 0
+    tol = 1e-4 if dtype == torch.float32 else RES_STAGE_BF16_TOL
+    assert max_rel(got, want) < tol
+    # against the unfolded modules too (f32 only: bf16 rounds elsewhere there)
+    if dtype == torch.float32:
+        with torch.no_grad():
+            ref = layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        assert max_rel(got, ref) < 1e-4
+
+
+@pytest.mark.gpu
+def test_res_stage_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    layer = ResLayer(256, 128, 2, 2).requires_grad_(False).to(cuda)
+    x = torch.zeros(1, 8, 8, 256, device=cuda, dtype=torch.bfloat16)
+    run = lambda xi, **kw: res_stage_kernel.fused_res_stage(xi, layer, blocks=2, width=128, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        run(x.float())                                   # wrong dtype
+    with pytest.raises(ValueError, match="contiguous"):
+        run(x.permute(0, 2, 1, 3))                       # not contiguous
+    with pytest.raises(RuntimeError, match="forward-only"):
+        run(x.float().requires_grad_(), dtype=torch.float32)
+    layer.block1.conv2.weight.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        run(x)
 
 
 @pytest.mark.gpu
