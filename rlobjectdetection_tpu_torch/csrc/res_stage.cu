@@ -32,12 +32,11 @@
 // channel, input channel) so a lane reads two 4-byte words. Each warp owns
 // W/8 (conv1, conv2) or 32 (a conv3 pass) output channels and all rows.
 // f32 (held against the plain version at 1e-4): the same warp and fragment
-// ownership on the FMA pipes, k steps of 4.
+// ownership on the FMA pipes, k steps of 4. The fragments and the GEMM
+// helper are mma.cuh's, shared with layer1.cu.
 // Later work: wgmma/TMA with weights staged through shared memory, more
 // CTAs per image at batch 1 (layer3 has 70 tiles for 132 SMs).
-#include <type_traits>
-
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -61,116 +60,6 @@ __host__ __device__ constexpr int row_stride() {
 template <typename T, int W>
 __host__ __device__ constexpr int smem_bytes() {
   return (NE + NP) * row_stride<T, W>() * static_cast<int>(sizeof(T));
-}
-
-// Operands of one 16x8 product step: C rows g and g+8, columns 2t and 2t+1
-// of the 8-wide N tile (g = lane / 4, t = lane % 4), as mma.sync lays out
-// its accumulators.
-struct FragBf16A { uint32_t r[4]; };   // m16n8k16 A: rows g, g+8 x k 2t.., 2t+8..
-struct FragBf16B { uint32_t r[2]; };   // m16n8k16 B: column g x k 2t.., 2t+8..
-struct FragF32 { float4 r[2]; };       // f32: two rows (A) or two columns (B) x 4 k
-
-template <typename T> struct Frags;
-template <> struct Frags<__nv_bfloat16> {
-  using A = FragBf16A;
-  using B = FragBf16B;
-  static constexpr int K = 16;
-};
-template <> struct Frags<float> {
-  using A = FragF32;
-  using B = FragF32;
-  static constexpr int K = 4;
-};
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A rows r0 (fragment row g) and r1 (row g + 8), each at the step's first k
-__device__ __forceinline__ void load_a(FragBf16A& f, const __nv_bfloat16* r0,
-                                       const __nv_bfloat16* r1, int t) {
-  f.r[0] = ld32(r0 + 2 * t);
-  f.r[1] = ld32(r1 + 2 * t);
-  f.r[2] = ld32(r0 + 2 * t + 8);
-  f.r[3] = ld32(r1 + 2 * t + 8);
-}
-
-__device__ __forceinline__ void load_a(FragF32& f, const float* r0, const float* r1, int) {
-  f.r[0] = *reinterpret_cast<const float4*>(r0);
-  f.r[1] = *reinterpret_cast<const float4*>(r1);
-}
-
-// B of an 8-wide N tile: rows n0 .. n0 + 7 of a [N][K] weight (ldb = K),
-// bt at row n0 and the step's first k
-__device__ __forceinline__ void load_b(FragBf16B& f, const __nv_bfloat16* bt, int ldb, int g,
-                                       int t) {
-  const uint32_t* p = reinterpret_cast<const uint32_t*>(bt + g * ldb + 2 * t);
-  f.r[0] = __ldg(p);
-  f.r[1] = __ldg(p + 4);
-}
-
-__device__ __forceinline__ void load_b(FragF32& f, const float* bt, int ldb, int, int t) {
-  f.r[0] = __ldg(reinterpret_cast<const float4*>(bt + 2 * t * ldb));
-  f.r[1] = __ldg(reinterpret_cast<const float4*>(bt + (2 * t + 1) * ldb));
-}
-
-__device__ __forceinline__ void mma(float* c, const FragBf16A& a, const FragBf16B& b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]), "r"(b.r[1]));
-}
-
-__device__ __forceinline__ float dot4(float c, float4 a, float4 b) {
-  c = fmaf(a.x, b.x, c);
-  c = fmaf(a.y, b.y, c);
-  c = fmaf(a.z, b.z, c);
-  return fmaf(a.w, b.w, c);
-}
-
-__device__ __forceinline__ void mma(float* c, const FragF32& a, const FragF32& b) {
-  c[0] = dot4(c[0], a.r[0], b.r[0]);
-  c[1] = dot4(c[1], a.r[0], b.r[1]);
-  c[2] = dot4(c[2], a.r[1], b.r[0]);
-  c[3] = dot4(c[3], a.r[1], b.r[1]);
-}
-
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// acc[m][n] += A(M tile m) x B(N tile n) over K. Row g + 8h of M tile m
-// starts at a + ro[m][h]; bt is the warp's first B row ([N][K], ldb = K).
-template <typename T, int M, int NT>
-__device__ __forceinline__ void gemm(float (&acc)[M][NT][4], const T* a, const int (&ro)[M][2],
-                                     const T* __restrict__ bt, int ldb, int K, int g, int t) {
-  using F = Frags<T>;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += F::K) {
-    typename F::B fb[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) load_b(fb[n], bt + n * 8 * ldb + k0, ldb, g, t);
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      typename F::A fa;
-      load_a(fa, a + ro[m][0] + k0, a + ro[m][1] + k0, t);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) mma(acc[m][n], fa, fb[n]);
-    }
-  }
 }
 
 template <typename T, int W, bool DOWN>
@@ -213,7 +102,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) bottleneck_kernel(
       }
     const int n0 = warp * NT * 8;
     float acc[MT1][NT][4] = {};
-    gemm<T, MT1, NT>(acc, xb, ro, w1 + static_cast<size_t>(n0) * cin, cin, cin, g, t);
+    gemm<true, T, MT1, NT>(acc, xb, ro, w1 + static_cast<size_t>(n0) * cin, cin, cin, g, t);
 #pragma unroll
     for (int m = 0; m < MT1; ++m)
 #pragma unroll
@@ -248,7 +137,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) bottleneck_kernel(
           const int p = m * 16 + g + 8 * h;
           ro[m][h] = ((p / TW + dy) * EW + p % TW + dx) * LDT;
         }
-      gemm<T, MT, NT>(acc, t1, ro, w2 + (static_cast<size_t>(tap) * W + n0) * W, W, W, g, t);
+      gemm<true, T, MT, NT>(acc, t1, ro, w2 + (static_cast<size_t>(tap) * W + n0) * W, W, W, g, t);
     }
 #pragma unroll
     for (int m = 0; m < MT; ++m)
@@ -282,8 +171,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) bottleneck_kernel(
     for (int pass = 0; pass < C4 / N3; ++pass) {
       const int n0 = pass * N3 + warp * NT3 * 8;
       float acc[MT][NT3][4] = {};
-      gemm<T, MT, NT3>(acc, t2, ro, w3 + static_cast<size_t>(n0) * W, W, W, g, t);
-      if (DOWN) gemm<T, MT, NT3>(acc, xb, rx, wd + static_cast<size_t>(n0) * cin, cin, cin, g, t);
+      gemm<true, T, MT, NT3>(acc, t2, ro, w3 + static_cast<size_t>(n0) * W, W, W, g, t);
+      if (DOWN)
+        gemm<true, T, MT, NT3>(acc, xb, rx, wd + static_cast<size_t>(n0) * cin, cin, cin, g, t);
 #pragma unroll
       for (int m = 0; m < MT; ++m)
 #pragma unroll

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .bn_fold import fold_conv_bn
+from .pack_cache import cached_pack
 
 _DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_WIDTHS = (128, 256)   # layer2, layer3: the widths the kernel is built for
@@ -65,20 +66,18 @@ def pack_res_stage(layer, blocks: int, width: int, dtype: torch.dtype,
     return packed
 
 
+def packed_on(packed: list[dict], device) -> list[dict]:
+    """Each block's packed operands moved to `device`."""
+    return [{k: None if v is None else v.to(device) for k, v in pk.items()} for pk in packed]
+
+
 def _packed(layer, blocks, width, dtype, device, eps) -> list[dict]:
-    """`pack_res_stage` of `layer` on `device`, cached on the module; the
-    cache key holds every weight's storage and version counter, so loading
-    or editing a weight in place packs again."""
-    tensors = [*layer.parameters(), *layer.buffers()]
-    key = (blocks, width, eps, device,
-           tuple((t.data_ptr(), t._version) for t in tensors))
-    cache = layer.__dict__.setdefault("_res_stage_packed", {})
-    hit = cache.get(dtype)
-    if hit is None or hit[0] != key:
-        packed = [{k: None if v is None else v.to(device) for k, v in pk.items()}
-                  for pk in pack_res_stage(layer, blocks, width, dtype, eps)]
-        cache[dtype] = hit = (key, packed)
-    return hit[1]
+    """`pack_res_stage` of `layer` on `device`, cached on the module per
+    dtype (`pack_cache.cached_pack`)."""
+    return cached_pack(layer, "_res_stage_packed", dtype, (blocks, width, eps, device),
+                       [*layer.parameters(), *layer.buffers()],
+                       lambda: packed_on(pack_res_stage(layer, blocks, width, dtype, eps),
+                                         device))
 
 
 def _block_plain(x: torch.Tensor, pk: dict, dtype: torch.dtype) -> torch.Tensor:

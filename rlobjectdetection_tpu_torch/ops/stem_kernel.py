@@ -4,7 +4,9 @@ ReLU + ceil-mode 3×3/2 max-pool.
 Counterpart of `rlobjectdetection_tpu/ops/stem_pallas.py::fused_stem`. On a
 CUDA tensor `fused_stem` launches the hand-written kernel `csrc/stem.cu`; on
 a CPU tensor it runs `stem_plain`, the same function in plain PyTorch, which
-is also what the kernel is held against on the card.
+is also what the kernel is held against on the card. The kernel's operands
+(`pack_stem`) are cached on the weight tensor per dtype and device, and
+packed again only when one of the five source tensors changes.
 """
 
 from __future__ import annotations
@@ -16,8 +18,10 @@ import torch.nn.functional as F
 
 from . import _build
 from .bn_fold import bn_mul_add
+from .pack_cache import cached_pack
 
 _DTYPES = (torch.float32, torch.bfloat16)
+STEM_ROW_TAPS = 32   # taps a kernel row in the bf16 packing: 21 used, padded to 2 k-steps
 
 
 def stem_out_shapes(h: int, w: int) -> tuple[int, int, int, int]:
@@ -42,13 +46,68 @@ def stem_plain(x, weight, scale, bias, mean, var, *, dtype=torch.bfloat16,
     return y.permute(0, 2, 3, 1).to(dtype).contiguous()
 
 
+def pack_stem(weight, scale, bias, mean, var, dtype: torch.dtype, eps: float = 1e-5):
+    """Kernel operands (w, mul, add). w for bf16: `[64, 224]`, output
+    channel by the 7 kernel rows of STEM_ROW_TAPS taps (kx, ci), zero past
+    tap 21 of a row (the tensor-core kernel's K); for f32: `[7, 7, 3, 64]`
+    (HWIO, the FMA kernel's coalesced rows). mul, add: the BN fold in f32."""
+    w = weight.to(dtype)
+    if dtype == torch.bfloat16:
+        wk = torch.zeros(64, 7, STEM_ROW_TAPS, dtype=dtype, device=weight.device)
+        wk[:, :, :21] = w.permute(0, 2, 3, 1).reshape(64, 7, 21)    # (co, ky, (kx, ci))
+        wk = wk.reshape(64, 7 * STEM_ROW_TAPS)
+    else:
+        wk = w.permute(2, 3, 1, 0).contiguous()
+    mul, add = bn_mul_add(scale, bias, mean, var, eps)
+    return wk, mul.contiguous(), add.contiguous()
+
+
+def packed_stem(weight, scale, bias, mean, var, dtype, device, eps: float = 1e-5):
+    """`pack_stem` on `device`, cached on the weight tensor per dtype and
+    keyed on all five tensors (`pack_cache.cached_pack`)."""
+    src = (weight, scale, bias, mean, var)
+    return cached_pack(weight, "_stem_packed", dtype, (eps, device), src,
+                       lambda: tuple(t.to(device) for t in pack_stem(*src, dtype, eps)))
+
+
 def _entry():
     fn = _build.load("stem").rlod_stem_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
     fn.argtypes += [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return fn
+
+
+def launch_stem(x: torch.Tensor, packed, dtype: torch.dtype) -> torch.Tensor:
+    """One kernel launch on packed operands already on x's device: x
+    `[B, H, W, 3]` CUDA NHWC f32 or bf16 → `[B, PH, PW, 64]` in `dtype`."""
+    if x.ndim != 4 or x.shape[-1] != 3 or x.dtype not in _DTYPES or not x.is_contiguous():
+        raise ValueError(f"fused_stem: x must be a contiguous [B, H, W, 3] f32/bf16 "
+                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+    b, h, w, _ = x.shape
+    if h < 3 or w < 3:
+        raise ValueError(f"fused_stem: image {h}x{w} is smaller than the 3x3 pool")
+    oh, ow, ph, pw = stem_out_shapes(h, w)
+    wk, mul, add = packed
+    out = torch.empty((b, ph, pw, 64), dtype=dtype, device=x.device)
+    err = _entry()(x.data_ptr(), _build.dtype_code(x.dtype), wk.data_ptr(), mul.data_ptr(),
+                   add.data_ptr(), out.data_ptr(), _build.dtype_code(dtype),
+                   b, h, w, oh, ow, ph, pw, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "stem kernel")
+    fused_stem.launches += 1
+    return out
+
+
+def stem_info(dtype: torch.dtype) -> dict:
+    """Launch resources of the kernel for `dtype` as the runtime reports
+    them: registers a thread, shared memory bytes a CTA, CTAs an SM, spill
+    bytes a thread."""
+    fn = _build.load("stem").rlod_stem_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    buf = (ctypes.c_int * 4)()
+    _build.check(fn(_build.dtype_code(dtype), buf), "stem info")
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm", "spill_bytes"), buf))
 
 
 @torch.no_grad()
@@ -63,30 +122,12 @@ def fused_stem(x, weight, scale, bias, mean, var, *, dtype=torch.bfloat16,
         return stem_plain(x, weight, scale, bias, mean, var, dtype=dtype, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_stem: unsupported device {x.device}")
-    if x.ndim != 4 or x.shape[-1] != 3 or x.dtype not in _DTYPES or not x.is_contiguous():
-        raise ValueError(f"fused_stem: x must be a contiguous [B, H, W, 3] f32/bf16 "
-                         f"tensor, got {tuple(x.shape)} {x.dtype}")
     if tuple(weight.shape) != (64, 3, 7, 7):
         raise ValueError(f"fused_stem: weight must be [64, 3, 7, 7], got {tuple(weight.shape)}")
     if dtype not in _DTYPES:
         raise ValueError(f"fused_stem: unsupported dtype {dtype}")
-    b, h, w, _ = x.shape
-    if h < 3 or w < 3:
-        raise ValueError(f"fused_stem: image {h}x{w} is smaller than the 3x3 pool")
-    oh, ow, ph, pw = stem_out_shapes(h, w)
-    # HWIO f32 holding compute-dtype values: the kernel reads 64 channels of
-    # one tap as one coalesced row
-    wk = weight.to(device=x.device, dtype=dtype).float().permute(2, 3, 1, 0).contiguous()
-    mul, add = bn_mul_add(scale, bias, mean, var, eps)
-    mul, add = mul.to(x.device).contiguous(), add.to(x.device).contiguous()
-    out = torch.empty((b, ph, pw, 64), dtype=dtype, device=x.device)
-    err = _entry()(x.data_ptr(), _build.dtype_code(x.dtype),
-                   int(dtype == torch.bfloat16), wk.data_ptr(), mul.data_ptr(),
-                   add.data_ptr(), out.data_ptr(), _build.dtype_code(dtype),
-                   b, h, w, oh, ow, ph, pw, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "stem kernel")
-    fused_stem.launches += 1
-    return out
+    return launch_stem(x, packed_stem(weight, scale, bias, mean, var, dtype, x.device, eps),
+                       dtype)
 
 
 fused_stem.launches = 0

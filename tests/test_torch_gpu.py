@@ -95,6 +95,60 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, tol):
     assert max_rel(got, roi_align.roi_align_avg(feats, rois)) < tol
 
 
+# bf16: kernel and plain version round the same f32 results at the same
+# points, but their sums run in other orders, so an output may round to the
+# neighbouring bf16 value: at most one step, 2^-7 of the largest output.
+ONE_BF16_STEP = 2.0 ** -7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w", [
+    (1, 800, 1216),     # the main path's image: 950 tiles, more than the persistent CTAs
+    (1, 70, 150),       # 17x37 pooled cells: partial tiles on both axes
+    (3, 45, 30),        # batch 3, 11x7 pooled cells: less than one tile wide
+])
+def test_stem_kernel_tiles(cuda, dtype, b, h, w):
+    rng = np.random.RandomState(h + w)
+    x = torch.from_numpy((rng.randn(b, h, w, 3) * 30).astype(np.float32)).to(cuda)
+    wt = torch.from_numpy((rng.randn(64, 3, 7, 7) * 0.1).astype(np.float32)).to(cuda)
+    bn = [torch.from_numpy(v.astype(np.float32)).to(cuda) for v in
+          (rng.rand(64) + 0.5, rng.randn(64), rng.randn(64) * 0.2, rng.rand(64) + 0.3)]
+    got = stem_kernel.fused_stem(x, wt, *bn, dtype=dtype)
+    torch.cuda.synchronize()
+    _, _, ph, pw = stem_kernel.stem_out_shapes(h, w)
+    assert got.dtype == dtype and tuple(got.shape) == (b, ph, pw, 64)
+    want = stem_kernel.stem_plain(x, wt, *bn, dtype=dtype)
+    assert max_rel(got, want) < (1e-4 if dtype == torch.float32 else ONE_BF16_STEP)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1.28e-2)])
+@pytest.mark.parametrize("b,h,w", [
+    (1, 200, 304),      # the main path's shape: 950 tiles, more than the persistent CTAs
+    (2, 37, 19),        # width and height not multiples of the 8x8 tile
+    (3, 9, 70),         # batch 3, one full and one partial tile row
+])
+def test_layer1_kernel_tiles(cuda, dtype, tol, b, h, w):
+    rng = np.random.RandomState(h + w)
+    layer = ResLayer(64, 64, 3, 1).requires_grad_(False)
+    _randomize_bn(layer, rng)
+    layer = layer.to(cuda)
+    x = torch.from_numpy(np.abs(rng.randn(b, h, w, 64)).astype(np.float32)).to(cuda, dtype)
+    n0 = layer1_kernel.fused_layer1.launches
+    got = layer1_kernel.fused_layer1(x, layer, dtype=dtype)
+    torch.cuda.synchronize()
+    assert layer1_kernel.fused_layer1.launches == n0 + 3
+    assert got.dtype == dtype and tuple(got.shape) == (b, h, w, 256)
+    want = layer1_kernel.layer1_plain(x, layer1_kernel.pack_layer1(layer, dtype), dtype)
+    assert float(want.float().abs().max()) > 0
+    assert max_rel(got, want) < tol
+    if dtype == torch.float32:   # the unfolded modules too (bf16 rounds elsewhere there)
+        with torch.no_grad():
+            ref = layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        assert max_rel(got, ref) < 1e-4
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -7)])
 def test_vgg_block1_kernel_matches_plain(cuda, dtype, tol):
