@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rlobjectdetection_tpu_torch/csrc` with
-nvcc (sm_90a), all five in parallel, and prints the stem's and layer1's
-launch resources (registers, shared memory a CTA, CTAs an SM, spills) as
-the runtime reports them. Then, for each of the two served
+nvcc (sm_90a), all five in parallel, and prints the stem's, layer1's and
+the residual stage's launch resources (registers, shared memory a CTA, CTAs
+an SM, spills; the stage's grid and cluster too) as the runtime reports
+them. Then, for each of the two served
 detectors (81 COCO classes, 800×1216, bf16 compute, seeded random weights)
 behind `Detector`:
 
@@ -19,14 +20,18 @@ it, in bf16 and in f32, times kernel, plain version and the library call
 that computes the same function (the stem and layer1 kernels on pre-packed
 operands, their wrappers' cache-hit time beside), and holds the whole
 backbone with the kernels against the plain modules. RoIAlignAvg runs on both paths (1024
-and 512 channels).
+and 512 channels). The flagship's stages are timed a second time with its
+layer2/layer3 on the residual-stage kernel (`stages_fused = 23`, the
+detector's eval path; served with `STAGE_FUSED=0`), and that base is held
+against the plain modules too.
 
 Then the RL box-refinement net (ResNet-101 trunk warm-started from the
 flagship, 56 actions, f32 params, bf16 compute, stem, layer1 and fused
 layer2/layer3 kernels): three refine requests of one 800×1216 image and 64
 boxes each through `Refiner`, then three `rl_train_step`s at batch 2 × 64
 boxes, with the launch counts set to 0 before the requests and read after
-the steps; the residual-stage kernel against its plain version and cuDNN at
+the steps; the residual-stage kernel (on pre-packed operands, its
+wrapper's cache-hit time beside) against its plain version and cuDNN at
 layer2's and layer3's shapes, the whole trunk and the action values with
 the kernels against the plain modules.
 
@@ -236,8 +241,11 @@ def serve_requests(label: str, detector, images, counters: dict) -> dict:
 def request_stages(label: str, detector, image, base_stage: str, head_stage: str):
     """Where one request's time goes: host clock around each stage, each
     ended by a device sync (so the stages do not overlap as they do when
-    served). Returns the request's blob and im_info on the card."""
+    served). The base runs as the detector's eval forward runs it
+    (`fwd_only` for a ResNet base). Returns the request's blob and im_info on
+    the card."""
     from rlobjectdetection_tpu_torch.engine.detect import postprocess_detections
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import ResNetBase
 
     model, cfg, dev = detector.model, detector.cfg, detector.device
     stages, t = {}, 0.0
@@ -255,7 +263,8 @@ def request_stages(label: str, detector, image, base_stage: str, head_stage: str
             data = torch.from_numpy(blob).to(dev)
             info = torch.from_numpy(im_info).to(dev)
             lap("prep (numpy resize and pad, copy to the card)")
-            feat = model.base(data)
+            feat = (model.base(data, fwd_only=True) if isinstance(model.base, ResNetBase)
+                    else model.base(data))
             lap(base_stage)
             rois, _, roi_valid = model.proposals(feat, info)
             lap("rpn (head convs, decode, top-k, NMS)")
@@ -379,6 +388,12 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     launches = serve_requests("main", detector, images, counters)
     data, info = request_stages("main", detector, images[0], "base (stem, layer1-3)",
                                 "head (roi_align_avg, layer4, classifiers)")
+    # the same request with layer2/layer3 on the residual-stage kernel
+    model.base.stages_fused = 23
+    request_stages("main STAGE_FUSED=23", detector, images[0],
+                   "base (stem, layer1, layer2-3 kernels)",
+                   "head (roi_align_avg, layer4, classifiers)")
+    model.base.stages_fused = 0
 
     # each kernel against its plain version at the shapes the requests gave it
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -445,9 +460,15 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
         results["roi_align_avg"] = roi_align_check("C=1024", base_feat, rois, flush,
                                                    BF16_TOL["roi_align_avg"])
 
-        # the whole C4 base: kernel stem + layer1 against the plain modules
+        # the whole C4 base: kernel stem + layer1 against the plain modules;
+        # then with layer2/layer3 on the stage kernel too, under the RL trunk's
+        # bound (the same kernels, the same rounding points)
         check(bool(torch.isfinite(base_feat.float()).all()), "base_feat is not finite")
         base_check("stem+layer1 kernels", base, data, BASE_FEAT_TOL)
+        base.stages_fused = 23
+        kernels_vs_plain("base_feat (stem+layer1+layer2-3 kernels, STAGE_FUSED=23)",
+                         lambda: base(data, fwd_only=True), [base], RL_BASE_FEAT_TOL)
+        base.stages_fused = 0
     # on the host, so the VGG-16 path's peak memory stays its own
     return results, launches, {k: v.cpu() for k, v in model.state_dict().items()}
 
@@ -670,7 +691,7 @@ def rl_net(det_state: dict) -> tuple[dict, dict]:
     base = model.base
     bf16, f32 = torch.bfloat16, torch.float32
     err_abs = err_rel = 0.0
-    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0)
+    totals = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, nbytes=0)
     with torch.no_grad():
         bn = base.bn1
         stem_w = (base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var)
@@ -697,21 +718,26 @@ def rl_net(det_state: dict) -> tuple[dict, dict]:
             weights = [v for pk in packed for v in pk.values() if v is not None]
             b_ms, b_by = bound(nbytes(x, out, *weights), 2.0 * ho * wo * macs, BF16_TENSOR_FLOPS)
             full_nchw = nhwc_to_nchw(full)
-            r = dict(ms=time_ms(lambda: run(x, bf16), flush),
+            # the kernel alone on pre-packed operands; the wrapper (cache hit) beside it
+            packed_k = res_stage_kernel.packed_res_stage(layer, blocks, width, bf16, dev)
+            r = dict(ms=time_ms(lambda: res_stage_kernel.launch_res_stage(x, packed_k, bf16),
+                                flush),
+                     wrapper_ms=time_ms(lambda: run(x, bf16), flush),
                      plain_ms=time_ms(lambda: res_stage_kernel.res_stage_plain(x, packed, bf16),
                                       flush),
                      library_ms=time_ms(lambda: layer(full_nchw), flush))
             print(f"res_stage {name}: {blocks} blocks, {2.0 * ho * wo * macs / 1e9:.3f} GFLOP, "
-                  f"kernel_ms {r['ms']:.4f}, plain_ms {r['plain_ms']:.4f}, library_ms "
-                  f"{r['library_ms']:.4f} (cuDNN ResLayer, channels-last bf16), bound_ms "
-                  f"{b_ms:.4f} ({b_by})", flush=True)
-            for k in ("ms", "plain_ms", "library_ms"):
+                  f"kernel_ms {r['ms']:.4f}, wrapper_ms {r['wrapper_ms']:.4f}, plain_ms "
+                  f"{r['plain_ms']:.4f}, library_ms {r['library_ms']:.4f} (cuDNN ResLayer, "
+                  f"channels-last bf16), bound_ms {b_ms:.4f} ({b_by})", flush=True)
+            for k in ("ms", "wrapper_ms", "plain_ms", "library_ms"):
                 totals[k] += r[k]
             totals["flops"] += 2.0 * ho * wo * macs
             totals["nbytes"] += nbytes(x, out, *weights)
             full = out
         b_ms, b_by = bound(totals["nbytes"], totals["flops"], BF16_TENSOR_FLOPS)
         results = {"res_stage": dict(err=(err_abs, err_rel), ms=totals["ms"],
+                                     wrapper_ms=totals["wrapper_ms"],
                                      plain_ms=totals["plain_ms"],
                                      library_ms=totals["library_ms"], bound_ms=b_ms,
                                      bound_by=b_by)}
@@ -750,12 +776,14 @@ def main() -> None:
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(built)} "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
-    from rlobjectdetection_tpu_torch.ops import layer1_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, res_stage_kernel, stem_kernel
     for dtype in (torch.bfloat16, torch.float32):
         print(f"launch resources {str(dtype)[6:]} (registers a thread, shared memory bytes a "
-              f"CTA, CTAs an SM, spill bytes a thread, as the runtime reports them): stem "
-              f"{stem_kernel.stem_info(dtype)}, layer1 {layer1_kernel.layer1_info(dtype)}",
-              flush=True)
+              f"CTA, CTAs an SM, spill bytes a thread, as the runtime reports them; for the "
+              f"residual stage also its grid at batch 1, CTAs a cluster and CTAs the card runs "
+              f"at once): stem {stem_kernel.stem_info(dtype)}, layer1 "
+              f"{layer1_kernel.layer1_info(dtype)}, res_stage "
+              f"{res_stage_kernel.res_stage_info(dtype)}", flush=True)
 
     # 3. the two served detectors, one after the other (the first freed
     # before the second, so each path's peak memory is its own)

@@ -184,6 +184,11 @@ RES_STAGE_BF16_TOL = 2e-2
     (2, 26, 42, 128, 256, 3, 2),    # layer2-like: stride-2 entry, 13x21 output, partial tiles
     (2, 11, 19, 256, 512, 2, 1),    # layer3 width, stride-1 entry, partial tiles
     (1, 18, 9, 256, 1024, 2, 1),    # identity-width input to block0, one column of tiles
+    (1, 100, 152, 128, 256, 4, 1),  # layer2's shape on the main path: 247 tiles
+    (1, 50, 76, 256, 512, 4, 1),    # layer3's shape (4 of its 23 blocks): 70 tiles, 2x4 and
+                                    # 8x4 partial tiles on the edges
+    (2, 50, 76, 256, 512, 4, 1),    # the same at batch 2, as the RL train step runs it
+    (1, 17, 33, 128, 512, 2, 1),    # an odd tile count (3x5), block0 with cin 512 at width 128
 ])
 def test_res_stage_kernel_matches_plain(cuda, dtype, b, h, w, width, cin, blocks, stride):
     rng = np.random.RandomState(width + h)
@@ -210,6 +215,33 @@ def test_res_stage_kernel_matches_plain(cuda, dtype, b, h, w, width, cin, blocks
         with torch.no_grad():
             ref = layer(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         assert max_rel(got, ref) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_res_stage_is_bit_identical_to_the_wrapper(cuda, dtype):
+    rng = np.random.RandomState(11)
+    layer = ResLayer(512, 256, 3, 1).requires_grad_(False)
+    _randomize_bn(layer, rng)
+    layer = layer.to(cuda)
+    x = torch.from_numpy(np.abs(rng.randn(1, 21, 30, 512)).astype(np.float32)).to(cuda, dtype)
+    got = res_stage_kernel.fused_res_stage(x, layer, blocks=3, width=256, dtype=dtype)
+    packed = res_stage_kernel.packed_res_stage(layer, 3, 256, dtype, cuda)
+    assert torch.equal(res_stage_kernel.launch_res_stage(x, packed, dtype), got)
+
+
+@pytest.mark.gpu
+def test_res_stage_launch_resources(cuda):
+    """The bf16 kernel spills nothing, fits two CTAs an SM, and puts more
+    CTAs to work than the card has SMs for layer3 at batch 1."""
+    info = res_stage_kernel.res_stage_info(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, r in info.items():
+        assert r["spill_bytes"] == 0 and r["ctas_per_sm"] >= 2 and r["cluster"] == 2, (name, r)
+    assert info["layer3 blocks 1+"]["grid"] == (140, 1, 1) and 140 >= sms
+    assert info["layer3 blocks 1+"]["ctas_at_once"] >= 140
+    f32 = res_stage_kernel.res_stage_info(torch.float32)
+    assert f32["layer3 blocks 1+"]["grid"] == (10, 7, 1) and f32["layer3 block0"]["cluster"] == 1
 
 
 @pytest.mark.gpu
