@@ -8,28 +8,66 @@
 // why it needed rois sorted by image in groups; this kernel gathers directly
 // and assumes nothing about roi order.
 //
-// What bounds it on the H100: at the serving shape (feats [1, 50, 76, 1024]
-// bf16, 300 rois) it reads 7.8 MB of features at most once from device
-// memory (the map fits the 50 MB L2, which serves the repeats) and writes
-// 30 MB of output, a bytes-bound function with 16 loads and ~28 FLOPs per
-// output element. Design: one block per (roi, chunk of 256 channels). The
-// first 16 threads compute the 8 row and 8 column sample coordinates exactly
-// as roi_align_coords does (f32, corner start clamped to H-2 / W-2, inside
-// mask, with explicit round-to-nearest ops so no FMA contraction moves a
-// sample across a pixel edge); then every thread owns one channel, gathers
-// each sample's four corners as channel-contiguous rows of the NHWC map
-// (coalesced across the warp), keeps two sample rows in registers and writes
-// each output row as soon as the second of its sample rows is done.
+// What bounds it on the H100: bytes. At the serving shape (feats
+// [1, 50, 76, 1024] bf16, 300 rois) it reads 7.8 MB of features at most once
+// from device memory (the map fits the 50 MB L2, which serves the repeats)
+// and writes 30 MB of output, with 16 loads and ~28 FLOPs per output
+// element. The design keeps many 16-byte accesses in flight:
+//  - a work item is (roi, output row py, 8 channels): a thread computes its
+//    two sample rows (py, py + 1) column by column, each sample from four
+//    16-byte corner loads (8 bf16 channels; f32 takes two 16-byte loads a
+//    corner), and writes its 7 outputs as 16-byte stores as soon as the
+//    second sample column of each is done. A column's eight loads carry no
+//    branch (the indices are clamped into the map; an outside sample is
+//    weighted 0), so they are all in flight at once: with a branch around
+//    each sample the loads went out four at a time;
+//  - a CTA is one roi x 256 channels: warp w is output row w (7 warps) and
+//    its 32 lanes cover 256 contiguous channels of each corner row, so every
+//    warp access is 512 contiguous bytes. The grid is R x ceil(C / 256):
+//    2,100 warps at the RL refine's 64 rois and C = 1024, where one thread a
+//    channel gave 256 CTAs;
+//  - the first 16 threads compute the 8 row and 8 column sample coordinates
+//    once a CTA into shared memory, exactly as roi_align_coords does (f32,
+//    corner start clamped to H-2 / W-2, inside mask, with explicit
+//    round-to-nearest ops so no FMA contraction moves a sample across a
+//    pixel edge); the batch index is clamped to [0, B) so no read leaves the
+//    map;
+//  - C % 8 != 0 (or a map not 16-byte aligned) takes the same loop with
+//    scalar loads and stores, channels past C masked.
 // Interpolation weights and sums are f32; the output is in the feature type.
-// Batch indices outside [0, B) are clamped so no read leaves the map.
 #include "common.cuh"
 
 namespace {
 
 constexpr int P = 7, A = P + 1;
-constexpr int NTHREADS = 256;
+constexpr int VEC = 8;                 // channels a thread
+constexpr int CHUNK = 32 * VEC;        // channels a CTA (one warp's row)
+constexpr int NTHREADS = 32 * P;       // warp w: output row w
 
-template <typename T>
+// 8 channels from c on, as f32: 16-byte loads when VEC_OK, else scalar
+// loads of the channels below C (0 past it)
+template <typename T, bool VEC_OK>
+__device__ __forceinline__ void load_ch(const T* p, int c, int C, float* v) {
+  if constexpr (VEC_OK) {
+    load8(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = c + j < C ? to_f(p[j]) : 0.f;
+  }
+}
+
+template <typename T, bool VEC_OK>
+__device__ __forceinline__ void store_ch(T* p, int c, int C, const float* v) {
+  if constexpr (VEC_OK) {
+    store8(p, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      if (c + j < C) p[j] = from_f<T>(v[j]);
+  }
+}
+
+template <typename T, bool VEC_OK>
 __global__ void __launch_bounds__(NTHREADS) roi_align_avg_kernel(
     const T* __restrict__ feat,     // [B][H][W][C]
     const float* __restrict__ rois, // [R][5] (batch_idx, x1, y1, x2, y2)
@@ -39,7 +77,7 @@ __global__ void __launch_bounds__(NTHREADS) roi_align_avg_kernel(
   __shared__ float s_ratio[2][A];
   __shared__ int s_inside[2][A];
   __shared__ int s_b;
-  const int r = blockIdx.y;
+  const int r = blockIdx.x;
   const float* roi = rois + static_cast<size_t>(r) * 5;
   if (threadIdx.x < 2 * A) {
     const int axis = threadIdx.x / A, i = threadIdx.x % A;  // 0: rows, 1: cols
@@ -57,49 +95,71 @@ __global__ void __launch_bounds__(NTHREADS) roi_align_avg_kernel(
   if (threadIdx.x == 0) s_b = min(max(static_cast<int>(roi[0]), 0), B - 1);
   __syncthreads();
 
-  const int c = blockIdx.x * NTHREADS + threadIdx.x;
+  const int py = threadIdx.x >> 5;
+  const int c = blockIdx.y * CHUNK + (threadIdx.x & 31) * VEC;
   if (c >= C) return;
   const size_t row_stride = static_cast<size_t>(W) * C;
   const T* fb = feat + static_cast<size_t>(s_b) * H * row_stride + c;
-  T* ob = out + static_cast<size_t>(r) * P * P * C + c;
+  T* ob = out + (static_cast<size_t>(r) * P + py) * P * C + c;
 
-  float prev[A], cur[A];
+  // sample rows py and py + 1: their corner rows, ratios, inside flags
+  const T* row[2][2];
+  float hr[2];
+  bool yin[2];
 #pragma unroll
-  for (int sy = 0; sy < A; ++sy) {
-    const float hr = s_ratio[0][sy];
-    const bool yin = s_inside[0][sy];
-    const T* row0 = fb + s_idx[0][sy] * row_stride;
-    const T* row1 = row0 + row_stride;
+  for (int k = 0; k < 2; ++k) {
+    row[k][0] = fb + s_idx[0][py + k] * row_stride;
+    row[k][1] = row[k][0] + row_stride;
+    hr[k] = s_ratio[0][py + k];
+    yin[k] = s_inside[0][py + k];
+  }
+
+  float prev[VEC];  // the column sum (both sample rows) of column sx - 1
 #pragma unroll
-    for (int sx = 0; sx < A; ++sx) {
-      float v = 0.f;
-      if (yin && s_inside[1][sx]) {
-        const float wr = s_ratio[1][sx];
-        const size_t o = static_cast<size_t>(s_idx[1][sx]) * C;
-        const float ul = to_f(row0[o]), ur = to_f(row0[o + C]);
-        const float dl = to_f(row1[o]), dr = to_f(row1[o + C]);
-        v = ul * ((1.f - hr) * (1.f - wr)) + ur * ((1.f - hr) * wr) +
-            dl * (hr * (1.f - wr)) + dr * (hr * wr);
-      }
-      cur[sx] = v;
+  for (int sx = 0; sx < A; ++sx) {
+    const float wr = s_ratio[1][sx];
+    const bool xin = s_inside[1][sx];
+    const size_t o = static_cast<size_t>(s_idx[1][sx]) * C;
+    float col[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) col[j] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (!(yin[k] && xin)) continue;
+      float ul[VEC], ur[VEC], dl[VEC], dr[VEC];
+      load_ch<T, VEC_OK>(row[k][0] + o, c, C, ul);
+      load_ch<T, VEC_OK>(row[k][0] + o + C, c, C, ur);
+      load_ch<T, VEC_OK>(row[k][1] + o, c, C, dl);
+      load_ch<T, VEC_OK>(row[k][1] + o + C, c, C, dr);
+      const float h = hr[k];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        col[j] += ul[j] * ((1.f - h) * (1.f - wr)) + ur[j] * ((1.f - h) * wr) +
+                  dl[j] * (h * (1.f - wr)) + dr[j] * (h * wr);
     }
-    if (sy > 0) {
+    if (sx > 0) {
+      float out_v[VEC];
 #pragma unroll
-      for (int px = 0; px < P; ++px)
-        ob[((sy - 1) * P + px) * static_cast<size_t>(C)] =
-            from_f<T>(0.25f * (prev[px] + prev[px + 1] + cur[px] + cur[px + 1]));
+      for (int j = 0; j < VEC; ++j) out_v[j] = 0.25f * (prev[j] + col[j]);
+      store_ch<T, VEC_OK>(ob + static_cast<size_t>(sx - 1) * C, c, C, out_v);
     }
 #pragma unroll
-    for (int sx = 0; sx < A; ++sx) prev[sx] = cur[sx];
+    for (int j = 0; j < VEC; ++j) prev[j] = col[j];
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* feat, const float* rois, void* out, int R, int B, int H,
                    int W, int C, float spatial_scale, cudaStream_t stream) {
-  const dim3 grid((C + NTHREADS - 1) / NTHREADS, R);
-  roi_align_avg_kernel<T><<<grid, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(feat), rois, static_cast<T*>(out), B, H, W, C, spatial_scale);
+  const dim3 grid(R, (C + CHUNK - 1) / CHUNK);
+  const bool vec = C % VEC == 0 && reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec)
+    roi_align_avg_kernel<T, true><<<grid, NTHREADS, 0, stream>>>(
+        static_cast<const T*>(feat), rois, static_cast<T*>(out), B, H, W, C, spatial_scale);
+  else
+    roi_align_avg_kernel<T, false><<<grid, NTHREADS, 0, stream>>>(
+        static_cast<const T*>(feat), rois, static_cast<T*>(out), B, H, W, C, spatial_scale);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
-// Hopper building blocks for the warpgroup kernels (res_stage.cu): wgmma
+// Hopper building blocks for the warpgroup kernels (res_stage.cu, vgg_block1.cu): wgmma
 // with A in registers and B in shared memory, the B descriptor of a
-// 128-byte-swizzled K-major tile, mbarriers, bulk copies into shared memory
-// and thread-block-cluster helpers. sm_90a only.
+// 128-byte-swizzled K-major tile, ldmatrix A fragments, mbarriers, bulk
+// copies into shared memory and thread-block-cluster helpers. sm_90a only.
 //
 // B tiles. A weight stage is NS = 64 output channels (rows n) x KS = 64
 // input channels (k) of bf16, 128 bytes a row, laid out as wgmma's canonical
@@ -103,6 +103,16 @@ __device__ __forceinline__ void mma_m64n128k16(float (&d)[2][32], const FragBf16
         "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
         "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
       : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "l"(b), "r"(1));
+}
+
+// The A fragment of a 16 x 16 bf16 tile from shared memory: lane l gives
+// the address of row (l & 7) + 8 * ((l >> 3) & 1), columns 8 * (l >> 4) ..
+// +7 (16 bytes, 16-byte aligned); the four 8x8 matrices land in r[0..3] in
+// mma.sync's A-fragment order.
+__device__ __forceinline__ void ldmatrix_a(FragBf16A& a, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a.r[0]), "=r"(a.r[1]), "=r"(a.r[2]), "=r"(a.r[3])
+               : "r"(addr));
 }
 
 // mbarriers in shared memory (addresses from smem_addr)

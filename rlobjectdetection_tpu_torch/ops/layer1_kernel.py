@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from . import _build
+from .guards import forward_only
 from .pack_cache import cached_pack
 from .res_stage_kernel import pack_res_stage, packed_on, res_stage_plain
 
@@ -95,20 +96,22 @@ def layer1_info(dtype: torch.dtype) -> dict:
     return res
 
 
-@torch.no_grad()
 def fused_layer1(x: torch.Tensor, layer, *, dtype=torch.bfloat16,
                  eps: float = 1e-5) -> torch.Tensor:
     """Run the frozen layer1 stage. x `[B, H, W, 64]` NHWC in `dtype` (the
     stem's output); layer: the module holding `block0..2`. Returns
-    `[B, H, W, 256]` NHWC in `dtype`."""
+    `[B, H, W, 256]` NHWC in `dtype`. Forward only: raises where autograd
+    would need its gradient (`guards.forward_only`)."""
+    forward_only("fused_layer1", [x, *layer.parameters()])
     if dtype not in _DTYPES:
         raise ValueError(f"fused_layer1: unsupported dtype {dtype}")
-    packed = packed_layer1(layer, dtype, x.device, eps)
-    if x.device.type == "cpu":
-        return layer1_plain(x, packed, dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layer1: unsupported device {x.device}")
-    return launch_layer1(x, packed, dtype)
+    with torch.no_grad():
+        packed = packed_layer1(layer, dtype, x.device, eps)
+        if x.device.type == "cpu":
+            return layer1_plain(x, packed, dtype)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_layer1: unsupported device {x.device}")
+        return launch_layer1(x, packed, dtype)
 
 
 fused_layer1.launches = 0

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .bn_fold import fold_conv_bn
+from .guards import forward_only
 from .pack_cache import cached_pack
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -261,11 +262,7 @@ def fused_res_stage(x: torch.Tensor, layer, *, blocks: int, width: int,
     NHWC in `dtype`. Forward only, as the TPU kernel is: it raises where
     autograd would need its gradient (grad enabled and `x` or a weight of the
     stage requires grad)."""
-    if torch.is_grad_enabled() and (x.requires_grad
-                                    or any(p.requires_grad for p in layer.parameters())):
-        raise RuntimeError(
-            "fused_res_stage is forward-only: it serves frozen trunk stages and the "
-            "no-gradient eval path; freeze the stage or detach its input")
+    forward_only("fused_res_stage", [x, *layer.parameters()])
     if dtype not in _DTYPES:
         raise ValueError(f"fused_res_stage: unsupported dtype {dtype}")
     with torch.no_grad():

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .bn_fold import bn_mul_add
+from .guards import forward_only
 from .pack_cache import cached_pack
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -110,24 +111,28 @@ def stem_info(dtype: torch.dtype) -> dict:
     return dict(zip(("registers", "smem_bytes", "ctas_per_sm", "spill_bytes"), buf))
 
 
-@torch.no_grad()
 def fused_stem(x, weight, scale, bias, mean, var, *, dtype=torch.bfloat16,
                eps: float = 1e-5) -> torch.Tensor:
     """conv1 + frozen BN + ReLU + ceil-mode max-pool in one kernel.
 
     x `[B, H, W, 3]` f32 or bf16, contiguous; weight `[64, 3, 7, 7]`;
     scale/bias/mean/var `[64]`. Returns `[B, PH, PW, 64]` (NHWC) in `dtype`,
-    the compute dtype: inputs and weights are rounded to it, sums are f32."""
-    if x.device.type == "cpu":
-        return stem_plain(x, weight, scale, bias, mean, var, dtype=dtype, eps=eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_stem: unsupported device {x.device}")
-    if tuple(weight.shape) != (64, 3, 7, 7):
-        raise ValueError(f"fused_stem: weight must be [64, 3, 7, 7], got {tuple(weight.shape)}")
-    if dtype not in _DTYPES:
-        raise ValueError(f"fused_stem: unsupported dtype {dtype}")
-    return launch_stem(x, packed_stem(weight, scale, bias, mean, var, dtype, x.device, eps),
-                       dtype)
+    the compute dtype: inputs and weights are rounded to it, sums are f32.
+    Forward only: raises where autograd would need its gradient
+    (`guards.forward_only`)."""
+    forward_only("fused_stem", (x, weight, scale, bias, mean, var))
+    with torch.no_grad():
+        if x.device.type == "cpu":
+            return stem_plain(x, weight, scale, bias, mean, var, dtype=dtype, eps=eps)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_stem: unsupported device {x.device}")
+        if tuple(weight.shape) != (64, 3, 7, 7):
+            raise ValueError(f"fused_stem: weight must be [64, 3, 7, 7], got "
+                             f"{tuple(weight.shape)}")
+        if dtype not in _DTYPES:
+            raise ValueError(f"fused_stem: unsupported dtype {dtype}")
+        return launch_stem(x, packed_stem(weight, scale, bias, mean, var, dtype, x.device, eps),
+                           dtype)
 
 
 fused_stem.launches = 0

@@ -171,6 +171,116 @@ def test_vgg_block1_kernel_matches_plain(cuda, dtype, tol):
     assert max_rel(got, vgg_block1_kernel.vgg_block1_plain(x, w1, b1, w2, b2, dtype=dtype)) < tol
 
 
+def _rois(rng, n, n_images, h=800, w=1216):
+    """n rois over n_images images of h x w pixels (the map at 1/16), a few
+    partly or wholly off the map."""
+    rois = np.zeros((n, 5), np.float32)
+    rois[:, 0] = rng.randint(0, n_images, n)
+    rois[:, 1] = rng.rand(n) * w
+    rois[:, 2] = rng.rand(n) * h
+    rois[:, 3:5] = rois[:, 1:3] + rng.rand(n, 2) * 400 + 8
+    if n >= 3:
+        rois[:3, 1:] = [[-120, -60, 200, 140], [w - 100, h - 50, w + 300, h + 200],
+                        [w + 40, h + 40, w + 500, h + 300]]
+    return rois
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_images,c,r", [
+    (1, 1024, 300),     # the flagship's head
+    (1, 512, 300),      # VGG-16's head
+    (1, 1024, 64),      # the RL refine
+    (2, 1024, 128),     # the RL train step: two images
+    (1, 1024, 0),       # no rois
+    (1, 520, 40),       # the last 256-channel chunk holds one 8-channel group
+])
+def test_roi_align_kernel_main_path_shapes(cuda, dtype, n_images, c, r):
+    """Against the plain version's f32 arithmetic on the same features,
+    rounded once to the feature type: the kernel blends and averages in f32
+    and rounds once, so bf16 may differ by one step (2^-7 of the largest
+    output) where the sums run in other orders; f32 by summation order."""
+    rng = np.random.RandomState(c + r)
+    feats = torch.from_numpy(rng.randn(n_images, 50, 76, c).astype(np.float32)).to(cuda, dtype)
+    rois = torch.from_numpy(_rois(rng, r, n_images)).to(cuda)
+    n0 = roi_align_kernel.roi_align_avg.launches
+    got = roi_align_kernel.roi_align_avg(feats, rois)
+    torch.cuda.synchronize()
+    assert roi_align_kernel.roi_align_avg.launches == n0 + (r > 0)
+    assert got.dtype == dtype and tuple(got.shape) == (r, 7, 7, c)
+    if r == 0:
+        return
+    want = roi_align.roi_align_avg(feats.float(), rois).to(dtype)
+    assert float(want.float().abs().max()) > 0
+    assert max_rel(got, want) <= (1e-4 if dtype == torch.float32 else ONE_BF16_STEP)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_kernel_clamps_the_batch_index(cuda, dtype):
+    """A batch index outside [0, B) reads the nearest image, as the kernel
+    clamps it; the plain version is given the clamped index."""
+    rng = np.random.RandomState(12)
+    feats = torch.from_numpy(rng.randn(2, 20, 30, 256).astype(np.float32)).to(cuda, dtype)
+    rois = _rois(rng, 8, 2, 320, 480)
+    rois[:4, 0] = [-1, 2, 7, -30]
+    got = roi_align_kernel.roi_align_avg(feats, torch.from_numpy(rois).to(cuda))
+    clamped = rois.copy()
+    clamped[:, 0] = np.clip(clamped[:, 0], 0, 1)
+    want = roi_align.roi_align_avg(feats.float(), torch.from_numpy(clamped).to(cuda)).to(dtype)
+    assert max_rel(got, want) <= (1e-4 if dtype == torch.float32 else ONE_BF16_STEP)
+
+
+def _block1_weights(rng, device):
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return (t(rng.randn(64, 3, 3, 3) * 0.2), t(rng.randn(64)), t(rng.randn(64, 64, 3, 3) * 0.05),
+            t(rng.randn(64)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, ONE_BF16_STEP)])
+@pytest.mark.parametrize("b,h,w", [
+    (1, 800, 1216),     # the main path's image: 3,800 bf16 tiles of 4x16 cells
+    (2, 70, 150),       # batch 2, 35x75 cells: partial tiles on both axes
+    (1, 56, 608),       # 7x19 = 133 bf16 tiles: one more than an H100's persistent CTAs
+])
+def test_vgg_block1_kernel_tiles(cuda, dtype, tol, b, h, w):
+    rng = np.random.RandomState(h + w)
+    x = torch.from_numpy((rng.randn(b, h, w, 3) * 30).astype(np.float32)).to(cuda)
+    wts = _block1_weights(rng, cuda)
+    n0 = vgg_block1_kernel.fused_vgg_block1.launches
+    got = vgg_block1_kernel.fused_vgg_block1(x, *wts, dtype=dtype)
+    torch.cuda.synchronize()
+    assert vgg_block1_kernel.fused_vgg_block1.launches == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, h // 2, w // 2, 64)
+    assert max_rel(got, vgg_block1_kernel.vgg_block1_plain(x, *wts, dtype=dtype)) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launch_vgg_block1_is_bit_identical_to_the_wrapper(cuda, dtype):
+    rng = np.random.RandomState(13)
+    x = torch.from_numpy((rng.randn(1, 64, 96, 3) * 30).astype(np.float32)).to(cuda)
+    wts = _block1_weights(rng, cuda)
+    got = vgg_block1_kernel.fused_vgg_block1(x, *wts, dtype=dtype)
+    packed = vgg_block1_kernel.packed_vgg_block1(*wts, dtype, cuda)
+    assert torch.equal(vgg_block1_kernel.launch_vgg_block1(x, packed, dtype), got)
+    # a bf16 image takes the same kernel
+    xb = x.to(torch.bfloat16)
+    assert max_rel(vgg_block1_kernel.launch_vgg_block1(xb, packed, dtype),
+                   vgg_block1_kernel.vgg_block1_plain(xb, *wts, dtype=dtype)) <= (
+        1e-4 if dtype == torch.float32 else ONE_BF16_STEP)
+
+
+@pytest.mark.gpu
+def test_vgg_block1_launch_resources(cuda):
+    """The bf16 kernel spills nothing and fits one persistent CTA an SM;
+    the f32 FMA kernel fits at least one."""
+    bf = vgg_block1_kernel.vgg_block1_info(torch.bfloat16)
+    assert bf["spill_bytes"] == 0 and bf["ctas_per_sm"] >= 1 and bf["smem_bytes"] > 160_000, bf
+    assert vgg_block1_kernel.vgg_block1_info(torch.float32)["ctas_per_sm"] >= 1
+
+
 # bf16: kernel and plain version round the same f32 sums at the same points,
 # but the sums run in other orders, so an activation may round to the
 # neighbouring bf16 value, and such steps compound through the blocks' rounded

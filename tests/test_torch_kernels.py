@@ -95,7 +95,10 @@ def _unflat(flat):
 
 
 def _torch_layer1(flat):
-    layer = ResLayer(64, 64, 3, 1)
+    """The port's layer1 with the JAX params, frozen as wherever the fused
+    layer1 runs (`fused_layer1` is forward-only and raises on a trainable
+    stage)."""
+    layer = ResLayer(64, 64, 3, 1).requires_grad_(False)
     layer.load_state_dict(state_dict_from_jax(flat, layer))
     return layer
 

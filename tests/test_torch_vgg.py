@@ -91,20 +91,27 @@ def test_vgg_block1_plain_bf16_matches_pallas():
     assert max_rel(got.float().numpy(), np.asarray(want.astype(jnp.float32))) <= 2.0 ** -7
 
 
-def test_pack_w2_places_each_weight_in_its_mma_fragment():
-    """The bf16 B fragments hold W[tap][ci][co] where mma.sync m16n8k16
-    expects it: lane (g, t), element e → co = 8j + g, ci = 16 (s % 4) + 2t +
-    e % 2 + 8 (e // 2), tap = s // 4."""
-    w2 = torch.from_numpy(np.random.RandomState(2).randn(64, 64, 3, 3).astype(np.float32))
-    packed = vgg_block1_kernel.pack_w2(w2, torch.bfloat16)
-    assert tuple(packed.shape) == (36, 8, 32, 4) and packed.dtype == torch.bfloat16
-    wt = w2.to(torch.bfloat16).permute(2, 3, 1, 0)          # [ky, kx, ci, co]
-    for s, j, lane, e in [(0, 0, 0, 0), (5, 3, 17, 2), (35, 7, 31, 3), (22, 1, 6, 1)]:
-        g, t = lane // 4, lane % 4
-        tap, ci = s // 4, 16 * (s % 4) + 2 * t + e % 2 + 8 * (e // 2)
-        assert packed[s, j, lane, e] == wt[tap // 3, tap % 3, ci, 8 * j + g]
-    f32 = vgg_block1_kernel.pack_w2(w2, torch.float32)
-    assert torch.equal(f32, w2.permute(2, 3, 1, 0).reshape(9, 64, 64))
+def test_pack_vgg_block1_places_each_weight_in_its_swizzled_slot():
+    """The bf16 weight image holds W where wgmma's 128-byte-swizzled K-major
+    B tiles expect it: tile t < 9 is conv1_2 at tap t (row co, k ci), tile
+    9 conv1_1 (row co, k = ky·9 + kx·3 + ci); element (n, k) of a tile at
+    bf16 index 64n + 8 (k // 8 ^ n % 8) + k % 8."""
+    rng = np.random.RandomState(2)
+    w1 = torch.from_numpy(rng.randn(64, 3, 3, 3).astype(np.float32))
+    w2 = torch.from_numpy(rng.randn(64, 64, 3, 3).astype(np.float32))
+    b = torch.zeros(64)
+    image = vgg_block1_kernel.pack_vgg_block1(w1, b, w2, b, torch.bfloat16)["w"]
+    assert tuple(image.shape) == (10, 4096) and image.dtype == torch.bfloat16
+    slot = lambda n, k: 64 * n + 8 * ((k // 8) ^ (n % 8)) + k % 8
+    w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+    for tap, co, ci in [(0, 0, 0), (4, 17, 33), (8, 63, 63), (2, 9, 14), (6, 40, 7)]:
+        assert image[tap, slot(co, ci)] == w2b[co, ci, tap // 3, tap % 3]
+    for co, ky, kx, ci in [(0, 0, 0, 0), (13, 1, 2, 1), (63, 2, 2, 2), (30, 2, 0, 1)]:
+        assert image[9, slot(co, ky * 9 + kx * 3 + ci)] == w1b[co, ci, ky, kx]
+    assert all(image[9, slot(co, k)] == 0 for co in (0, 31, 63) for k in range(27, 64))
+    f32 = vgg_block1_kernel.pack_vgg_block1(w1, b, w2, b, torch.float32)
+    assert torch.equal(f32["w2"], w2.permute(2, 3, 1, 0).reshape(9, 64, 64))
+    assert torch.equal(f32["w1"], w1.permute(2, 3, 1, 0).reshape(27, 64))
 
 
 def test_vgg_base_fused_matches_jax():
