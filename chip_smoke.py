@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rlobjectdetection_tpu_torch/csrc` with
-nvcc (sm_90a), all five in parallel, and prints the stem's, layer1's, VGG
+nvcc (sm_90a), all five sources in parallel, and prints the stem's, layer1's, VGG
 block 1's and the residual stage's launch resources (registers, shared
 memory a CTA, CTAs an SM, spills; the stage's grid and cluster too) as the
 runtime reports them. Then, for each of the two served
@@ -37,11 +37,20 @@ layer2's and layer3's shapes, RoIAlignAvg at the refine's 64 rois, the
 whole trunk and the action values with the kernels against the plain
 modules.
 
+Then the detector's train step (the flagship's weights, `bench.py`'s
+synthetic batch at 2 images, SGD at 0.01, bf16 compute): three steps with
+the launch counts of the stem, layer1 and both RoIAlignAvg kernels read over
+them, one step's stages, the RoIAlignAvg backward kernel against its plain
+version (R=256 at C=1024, and a small shape) timed as a CUDA graph of its
+launch, and one whole step with the kernels against the same step with
+their plain versions, in f32 and in bf16, from the first step's parameters.
+
 Every phase raises on failure and the script exits non-zero: no CUDA, a
 kernel that does not build or launch, a kernel that disagrees with its plain
 version, a request that gives a wrong shape, non-finite values, no valid
 detection, a train step whose loss is not finite, that moves the frozen
-trunk or leaves the head unchanged, or a kernel the path did not launch. The
+trunk or leaves the head unchanged, a whole train step whose losses or
+updates leave their bounds, or a kernel the path did not launch. The
 line before the last
 is the card's name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`.
@@ -126,6 +135,21 @@ RES_STAGE_TOL = {torch.bfloat16: 3e-2, torch.float32: F32_TOL}
 RL_BASE_FEAT_TOL = {torch.bfloat16: 4e-2, torch.float32: F32_TOL}
 RL_PRED_TOL = {torch.bfloat16: 2e-2, torch.float32: F32_TOL}
 RL_BOXES, RL_TRAIN_BATCH = 64, 2
+# The detector's train step at batch 2 (`bench.py` trains at 8). One step
+# with the stem, layer1 and RoIAlignAvg kernels against the same step with
+# their plain versions, from identical parameters and sampling draws: in f32
+# the two compute one function (summation order only), so the four losses
+# agree to 1e-4 and each trainable tensor's update to 1e-3 of its largest
+# element (measured 8.7e-4 on an H100 (700 W): a ReLU gate within rounding
+# of 0 may open on one side only). In bf16 the kernels round where the plain
+# modules do not (the base's 3e-2 above), which moves the losses: their gaps
+# measured 1.83e-3 at most on an H100 (700 W), so the bound is 5e-3.
+TRAIN_BATCH, TRAIN_STEPS = 2, 3
+TRAIN_LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
+TRAIN_UPDATE_TOL = 1e-3
+# The backward kernel sums with f32 atomics, its plain version with
+# index_add_: other orders, so 1e-5 of the largest gradient in f32.
+BWD_F32_TOL = 1e-5
 REPS, WARMUP = 20, 3
 
 
@@ -782,6 +806,289 @@ def rl_net(det_state: dict) -> tuple[dict, dict]:
     return results, launches
 
 
+def bench_gt(rng, b: int, g: int, h: int, w: int) -> np.ndarray:
+    """`bench.py::_gt`: 8 random boxes of 40-190 px a image with a class in
+    1..80, zero rows up to g."""
+    gt = np.zeros((b, g, 5), dtype=np.float32)
+    for i in range(b):
+        for j in range(8):
+            x1, y1 = rng.randint(0, w - 200), rng.randint(0, h - 200)
+            gt[i, j] = [x1, y1, x1 + rng.randint(40, 190), y1 + rng.randint(40, 190),
+                        1 + rng.randint(80)]
+    return gt
+
+
+def train_batch(dev) -> dict:
+    """`bench.py`'s synthetic train batch (seed 3) at TRAIN_BATCH images."""
+    rng = np.random.RandomState(3)
+    b, (h, w) = TRAIN_BATCH, BLOB_SHAPE[1:3]
+    batch = {"data": rng.randn(b, h, w, 3).astype(np.float32) * 10,
+             "im_info": np.array([[h, w, 1.0]] * b, dtype=np.float32),
+             "gt_boxes": bench_gt(rng, b, 50, h, w),
+             "num_boxes": np.full((b,), 8, dtype=np.int32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def plain_train_path(model):
+    """The train step without its kernels: the plain stem and layer1 modules
+    and the plain RoIAlignAvg, differentiated by autograd; restored after."""
+    from rlobjectdetection_tpu_torch.models import faster_rcnn
+    from rlobjectdetection_tpu_torch.ops import roi_align
+
+    saved = faster_rcnn.roi_align_avg
+    faster_rcnn.roi_align_avg = roi_align.roi_align_avg
+    try:
+        with plain_modules(model.base):
+            yield
+    finally:
+        faster_rcnn.roi_align_avg = saved
+
+
+def one_train_step(model, batch, seed: int):
+    """One step from the model's parameters with a fresh optimizer (SGD,
+    base_lr 0.01): (metrics as floats, {trainable name: update})."""
+    from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
+
+    opt, sched, labels = build_optimizer(model, "resnet101", base_lr=0.01)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if labels[n] != "frozen"}
+    metrics = make_train_step(model, opt, sched)(
+        batch, torch.Generator(device=batch["data"].device).manual_seed(seed))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    updates = {n: p.detach() - before[n] for n, p in model.named_parameters() if n in before}
+    return metrics, updates
+
+
+def train_stages(model, batch, seed: int) -> dict:
+    """Where one train step's time goes: the train forward's parts, the
+    backward and the optimizer step, host clock around each, each ended by
+    a device sync (so they do not overlap as they do in a step)."""
+    from rlobjectdetection_tpu_torch.engine import build_optimizer
+    from rlobjectdetection_tpu_torch.models.losses import smooth_l1_loss, softmax_cross_entropy
+    from rlobjectdetection_tpu_torch.models.targets import (anchor_target, proposal_target,
+                                                            uniform_source)
+
+    c, t = model.cfg, model.cfg.TRAIN
+    opt, sched, _ = build_optimizer(model, "resnet101", base_lr=0.01)
+    data, info, gt = batch["data"], batch["im_info"], batch["gt_boxes"]
+    stages, t0 = {}, 0.0
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        stages[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        t0 = time.perf_counter()
+
+    for _ in range(2):                          # the second pass is the one kept
+        uniform = uniform_source(torch.Generator(device=data.device).manual_seed(seed),
+                                 data.device)
+        b, a = data.shape[0], model.num_anchors
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        base_feat = model.base(data)
+        lap("base (stem, layer1 kernels, layer2-3 cuDNN)")
+        rpn_cls, rpn_delta = model.rpn(base_feat)
+        rois = model._propose(rpn_cls, rpn_delta, info, t)[0]
+        lap("rpn (head convs, decode, top-12000, NMS to 2000)")
+        at = anchor_target(uniform, tuple(base_feat.shape[1:3]), gt, info,
+                           feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
+                           anchor_ratios=c.ANCHOR_RATIOS, rpn_batch_size=t.RPN_BATCHSIZE)
+        logits2 = torch.stack([rpn_cls[..., :a].reshape(b, -1),
+                               rpn_cls[..., a:].reshape(b, -1)], dim=-1)
+        loss = softmax_cross_entropy(logits2, at.labels.clamp_min(0), at.labels >= 0)
+        loss = loss + smooth_l1_loss(rpn_delta.float().reshape(b, -1, 4), at.bbox_targets,
+                                     at.bbox_inside_weights, at.bbox_outside_weights,
+                                     sigma=3.0, reduce_dims=(1, 2))
+        lap("anchor_target + RPN losses")
+        pt = proposal_target(uniform, rois, gt, rois_per_image=t.BATCH_SIZE)
+        lap("proposal_target (sample 128 rois an image)")
+        cls_score, bbox_pred = model._scores(base_feat, pt.rois)
+        labels = pt.labels.reshape(-1)
+        sel = F.one_hot(labels.long(), model.num_classes).float()
+        bbox_pred = torch.einsum("ncd,nc->nd", bbox_pred.reshape(-1, model.num_classes, 4), sel)
+        loss = loss + softmax_cross_entropy(cls_score, labels) + smooth_l1_loss(
+            bbox_pred, pt.bbox_targets.reshape(-1, 4), pt.bbox_inside_weights.reshape(-1, 4),
+            pt.bbox_outside_weights.reshape(-1, 4))
+        lap("head (roi_align_avg, layer4, classifiers, R-CNN losses)")
+        loss.backward()
+        lap("backward (roi_align_avg_bwd kernel, layer2-4, RPN, classifiers)")
+        opt.step()
+        sched.step()
+        lap("optimizer step (SGD)")
+        float(loss.detach())
+        lap("copy the loss to the host")
+    return stages
+
+
+def roi_align_bwd_check(label, feat_shape, rois, grad, flush) -> dict:
+    """The backward kernel against its plain version on the same inputs: in
+    f32 to 1e-5 of the largest gradient (the kernel's atomics and the plain
+    version's index_add_ sum in other orders); in bf16 both sum in f32 and
+    round once, so an element may round to its neighbour: one bf16 step.
+    Timed as a CUDA graph of the launch, its wrapper as called beside."""
+    from rlobjectdetection_tpu_torch.ops import roi_align, roi_align_kernel
+
+    grad32 = grad.float()
+    parity(f"roi_align_avg_bwd {label}", torch.float32,
+           roi_align_kernel.roi_align_avg_bwd(grad32, rois, feat_shape),
+           roi_align.roi_align_avg_backward(grad32, rois, feat_shape, torch.float32),
+           BWD_F32_TOL)
+    got = roi_align_kernel.roi_align_avg_bwd(grad, rois, feat_shape)
+    err = parity(f"roi_align_avg_bwd {label}", torch.bfloat16, got,
+                 roi_align.roi_align_avg_backward(grad, rois, feat_shape, torch.bfloat16),
+                 ONE_BF16_STEP)
+    # operations this run's rois need: 8 per inside sample (its gradient
+    # from the pooled column sums, four weights, four sums) and 4 per pooled
+    # cell (its share to the column sums)
+    _, fh, fw, c = feat_shape
+    inside = roi_align.roi_align_coords(rois, fh, fw, 8, 8, 1.0 / 16.0)[-1]
+    flops = c * (8.0 * int(inside.sum()) + 4.0 * rois.shape[0] * 49)
+    b_bwd, f_bwd = bound(nbytes(grad, rois, got), flops, F32_FLOPS)
+    run = lambda: roi_align_kernel.roi_align_avg_bwd(grad, rois, feat_shape)
+    r = dict(err=err, ms=graph_ms(run, flush), wrapper_ms=time_ms(run, flush),
+             plain_ms=time_ms(lambda: roi_align.roi_align_avg_backward(
+                 grad, rois, feat_shape, torch.bfloat16), flush),
+             library_ms=None, bound_ms=b_bwd, bound_by=f_bwd)
+    print(f"roi_align_avg_bwd {label}: grad {tuple(grad.shape)}, d features {tuple(feat_shape)}, "
+          f"f32 scratch {4 * got.numel()} bytes (zeroed, reduced into, read back: the simple "
+          f"design's overhead above the bound)", flush=True)
+    return r
+
+
+def step_vs_plain(model, batch, state: dict, dtype) -> list[str]:
+    """One train step from `state` with the kernels and one with their plain
+    versions (same sampling seed): prints the four losses' relative gaps and
+    the largest update gap of a trainable tensor (relative to its largest
+    update); returns the bounds they break."""
+    model.dtype = model.base.dtype = dtype
+    with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
+        model.load_state_dict(state)
+        got, got_up = one_train_step(model, batch, seed=9)
+        model.load_state_dict(state)
+        with plain_train_path(model):
+            want, want_up = one_train_step(model, batch, seed=9)
+    gaps = {k: abs(got[k] - want[k]) / abs(want[k]) for k in
+            ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")}
+    up_rel, up_leaf = max((((got_up[n] - want_up[n]).abs().max()
+                            / want_up[n].abs().max()).item(), n) for n in want_up)
+    print(f"train step {str(dtype)[6:]} (kernels vs plain versions): losses "
+          f"{[round(got[k], 6) for k in gaps]} vs {[round(want[k], 6) for k in gaps]}, "
+          f"relative gaps {gaps} (bound {TRAIN_LOSS_TOL[dtype]:.1e}); fg/bg "
+          f"{int(got['fg_cnt'])}/{int(got['bg_cnt'])} vs "
+          f"{int(want['fg_cnt'])}/{int(want['bg_cnt'])}; largest update gap "
+          f"{up_rel:.3e} of a leaf's max |update| ({up_leaf})", flush=True)
+    failed = []
+    if max(gaps.values()) > TRAIN_LOSS_TOL[dtype]:
+        failed.append(f"train step {dtype}: loss gaps {gaps} > {TRAIN_LOSS_TOL[dtype]}")
+    if dtype == torch.float32 and up_rel > TRAIN_UPDATE_TOL:
+        failed.append(f"train step f32: update gap {up_rel:.3e} ({up_leaf}) > "
+                      f"{TRAIN_UPDATE_TOL}")
+    return failed
+
+
+def train_path(det_state: dict) -> tuple[dict, dict]:
+    """The detector's train step: three bf16 steps of the flagship at batch
+    2 with the launch counts read over them, one step's stages, the backward
+    kernel against its plain version, and one step with the kernels against
+    the plain modules in f32 and in bf16."""
+    from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
+    from rlobjectdetection_tpu_torch.engine.serve import build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+
+    dev = torch.device("cuda")
+    cfg = build_config("coco", ["DTYPE", "bfloat16"])
+    t = cfg.TRAIN
+    check(cfg.CONV1_FUSED and cfg.LAYER1_FUSED and cfg.RESNET.FIXED_BLOCKS == 1
+          and cfg.ANCHOR_SCALES == (4, 8, 16, 32) and cfg.MAX_NUM_GT_BOXES == 50
+          and (t.RPN_PRE_NMS_TOP_N, t.RPN_POST_NMS_TOP_N, t.RPN_BATCHSIZE, t.BATCH_SIZE)
+          == (12000, 2000, 256, 128), f"train config expected, got {cfg}")
+    model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev, seed=3)
+    model.load_state_dict(det_state)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(dev)
+    counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                "roi_align_avg": roi_align_kernel.roi_align_avg,
+                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+    opt, sched, labels = build_optimizer(model, "resnet101", base_lr=0.01)
+    step = make_train_step(model, opt, sched)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"model: resnet101 C4 train step, batch {TRAIN_BATCH} x {BLOB_SHAPE[1]}x"
+          f"{BLOB_SHAPE[2]}, {n_train} trained parameters in "
+          f"{sum(v != 'frozen' for v in labels.values())} tensors, SGD base_lr 0.01, "
+          f"compute {cfg.DTYPE}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    step_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, gen)
+        loss = float(metrics["loss"])                   # ends in a device sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        parts = {k: float(metrics[k]) for k in ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")}
+        losses.append(parts)
+        check(np.isfinite(loss) and all(np.isfinite(v) for v in parts.values()),
+              f"train step {i}: loss {loss} {parts}")
+        print(f"train step {i}: {step_ms[-1]:.2f} ms, loss {loss:.5f} {parts}, fg_cnt "
+              f"{int(metrics['fg_cnt'])}, bg_cnt {int(metrics['bg_cnt'])}", flush=True)
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train path: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, step ms "
+          f"{[round(v, 3) for v in step_ms]}, peak memory {peak} bytes, launches {launches}",
+          flush=True)
+    check(all(launches.values()), f"train: a kernel of the path was not launched: {launches}")
+    frozen_moved = [k for k, v in model.state_dict().items()
+                    if labels.get(k, "frozen") == "frozen" and not torch.equal(v, state0[k])]
+    check(not frozen_moved, f"train: frozen tensors changed: {frozen_moved[:4]}")
+    del opt, sched, step
+
+    model.load_state_dict(state0)
+    print(f"train step stages ms: {train_stages(model, batch, seed=11)}", flush=True)
+
+    # the backward kernel at the flagship's train shape (the rois a train
+    # forward samples) and at a small shape with rois over the border
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    model.load_state_dict(state0)
+    with torch.no_grad():
+        base_feat = model.base(batch["data"])
+        out = model(batch["data"], batch["im_info"], batch["gt_boxes"], train=True,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    rois = out["rois"].reshape(-1, 5).contiguous()
+    feat_shape = tuple(base_feat.shape)
+    check(feat_shape == (2, 50, 76, 1024) and tuple(rois.shape) == (256, 5),
+          f"train head inputs {feat_shape} {tuple(rois.shape)}")
+    g = torch.Generator(device=dev).manual_seed(5)
+    grad = torch.randn((256, 7, 7, 1024), generator=g, device=dev).to(torch.bfloat16)
+    results = {"roi_align_avg_bwd": roi_align_bwd_check("R=256 C=1024", feat_shape, rois, grad,
+                                                        flush)}
+    rng = np.random.RandomState(13)
+    small = rng.uniform(-40, 160, (7, 4)).astype(np.float32)
+    small[:, 2:] = small[:, :2] + rng.uniform(0, 120, (7, 2))
+    small_rois = torch.from_numpy(np.concatenate(
+        [rng.randint(0, 2, (7, 1)).astype(np.float32), small], 1)).to(dev)
+    small_grad = torch.randn((7, 7, 7, 64), generator=g, device=dev).to(torch.bfloat16)
+    roi_align_bwd_check("R=7 C=64", (2, 9, 11, 64), small_rois, small_grad, flush)
+    del base_feat, out, flush
+
+    # the whole step, kernels against plain versions, from identical
+    # parameters and sampling draws: the first step's. The random net's
+    # proposals overlap no gt box there, so the sampled rois are the gt boxes
+    # whatever the proposals, and the comparison hangs on no NMS tie. (Once
+    # the net has trained, the two bf16 paths' roundings move the proposals
+    # and with them the sampled rois.) Both dtypes print before either fails.
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        failed += step_vs_plain(model, batch, state0, dtype)
+    model.dtype = model.base.dtype = torch.bfloat16
+    check(not failed, "; ".join(failed))
+    return results, launches
+
+
 def report(name, r, launches, label=None) -> None:
     wrapper = f"wrapper_ms {r['wrapper_ms']:.4f}, " if "wrapper_ms" in r else ""
     print(f"{label or name}: kernel_ms {r['ms']:.4f}, {wrapper}plain_ms {r['plain_ms']:.4f}, "
@@ -833,15 +1140,22 @@ def main() -> None:
 
     # 4. the RL refinement net, warm-started from the flagship
     rl_results, rl_launches = rl_net(det_state)
+    torch.cuda.empty_cache()
 
-    # 5. the kernels line: launches over both detectors' requests, and over
-    # the RL path's requests and train steps for the residual stage
+    # 5. the detector's train step, from the flagship's weights
+    train_results, train_launches = train_path(det_state)
+
+    # 6. the kernels line: launches over both detectors' requests, over the
+    # RL path's requests and train steps for the residual stage, and over the
+    # detector's train steps for the RoIAlignAvg backward
     roi_launches = launches["roi_align_avg"] + vgg_launches["roi_align_avg"]
     results["vgg_block1"] = vgg_results["vgg_block1"]
     results["res_stage"] = rl_results["res_stage"]
     roi_rl = rl_results.pop("roi_align_avg C=1024 R=64")
+    results["roi_align_avg_bwd"] = train_results["roi_align_avg_bwd"]
     launches = dict(launches, vgg_block1=vgg_launches["vgg_block1"], roi_align_avg=roi_launches,
-                    res_stage=rl_launches["res_stage"])
+                    res_stage=rl_launches["res_stage"],
+                    roi_align_avg_bwd=train_launches["roi_align_avg_bwd"])
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
                "layer1": ("csrc/layer1.cu", "rlobjectdetection_tpu/ops/layer1_pallas.py:317"),
                "roi_align_avg": ("csrc/roi_align.cu",
@@ -849,9 +1163,12 @@ def main() -> None:
                "vgg_block1": ("csrc/vgg_block1.cu",
                               "rlobjectdetection_tpu/ops/vgg_stem_pallas.py:270"),
                "res_stage": ("csrc/res_stage.cu",
-                             "rlobjectdetection_tpu/ops/res_stage_pallas.py:284")}
+                             "rlobjectdetection_tpu/ops/res_stage_pallas.py:284"),
+               "roi_align_avg_bwd": ("csrc/roi_align.cu",
+                                     "rlobjectdetection_tpu/ops/roi_align_vjp.py:39 (XLA)")}
     where = {"roi_align_avg": "in 6 requests",
-             "res_stage": "in 3 RL requests and 3 RL train steps (layer2 + layer3)"}
+             "res_stage": "in 3 RL requests and 3 RL train steps (layer2 + layer3)",
+             "roi_align_avg_bwd": f"in {TRAIN_STEPS} detector train steps"}
     kernels = []
     for name, r in results.items():
         report(name, r, f"{launches[name]} {where.get(name, 'in 3 requests')}",
@@ -866,6 +1183,7 @@ def main() -> None:
            f"{vgg_launches['roi_align_avg']} in the 3 vgg16 requests", "roi_align_avg C=512")
     report("roi_align_avg", roi_rl, f"{rl_launches['roi_align_avg']} in the RL requests and "
            f"train steps", "roi_align_avg C=1024 R=64")
+    print(f"detector train path launches over {TRAIN_STEPS} steps: {train_launches}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

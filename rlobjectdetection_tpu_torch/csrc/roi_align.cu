@@ -1,5 +1,7 @@
-// RoIAlignAvg forward for Hopper: single-sample bilinear RoIAlign at an
-// 8x8 grid per roi, then the stride-1 2x2 mean, giving [R, 7, 7, C].
+// RoIAlignAvg for Hopper, forward and backward. The forward is single-sample
+// bilinear RoIAlign at an 8x8 grid per roi, then the stride-1 2x2 mean,
+// giving [R, 7, 7, C]; the backward (rlod_roi_align_avg_bwd, its kernel
+// described where it is defined below) gives the features' gradient.
 //
 // Replaces the TPU kernel rlobjectdetection_tpu/ops/roi_align_pallas.py::
 // roi_align_fwd_pallas (its _make_kernel) together with the 2x2 mean of
@@ -35,6 +37,9 @@
 //  - C % 8 != 0 (or a map not 16-byte aligned) takes the same loop with
 //    scalar loads and stores, channels past C masked.
 // Interpolation weights and sums are f32; the output is in the feature type.
+
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -67,18 +72,20 @@ __device__ __forceinline__ void store_ch(T* p, int c, int C, const float* v) {
   }
 }
 
-template <typename T, bool VEC_OK>
-__global__ void __launch_bounds__(NTHREADS) roi_align_avg_kernel(
-    const T* __restrict__ feat,     // [B][H][W][C]
-    const float* __restrict__ rois, // [R][5] (batch_idx, x1, y1, x2, y2)
-    T* __restrict__ out,            // [R][P][P][C]
-    int B, int H, int W, int C, float spatial_scale) {
-  __shared__ int s_idx[2][A];
-  __shared__ float s_ratio[2][A];
-  __shared__ int s_inside[2][A];
-  __shared__ int s_b;
-  const int r = blockIdx.x;
-  const float* roi = rois + static_cast<size_t>(r) * 5;
+// Sample-point geometry of one roi, exactly as roi_align_coords computes it
+// (f32, corner start clamped to H-2 / W-2, inside mask), with explicit
+// round-to-nearest ops so no FMA contraction moves a sample across a pixel
+// edge; the batch index is clamped to [0, B) so no access leaves the map.
+// Threads 0..2A-1 fill it; the caller syncs before reading.
+struct RoiCoords {
+  int idx[2][A];     // [0]: rows, [1]: cols
+  float ratio[2][A];
+  int inside[2][A];
+  int b;
+};
+
+__device__ __forceinline__ void roi_coords(RoiCoords& s, const float* roi, float spatial_scale,
+                                           int B, int H, int W) {
   if (threadIdx.x < 2 * A) {
     const int axis = threadIdx.x / A, i = threadIdx.x % A;  // 0: rows, 1: cols
     const float lo = __fmul_rn(roi[axis == 0 ? 2 : 1], spatial_scale);
@@ -88,18 +95,29 @@ __global__ void __launch_bounds__(NTHREADS) roi_align_avg_kernel(
     const float coord = __fadd_rn(__fmul_rn(static_cast<float>(i), bin), lo);
     const int size = axis == 0 ? H : W;
     const float start = fminf(floorf(coord), static_cast<float>(size - 2));
-    s_ratio[axis][i] = __fsub_rn(coord, start);
-    s_inside[axis][i] = coord >= 0.f && coord < static_cast<float>(size);
-    s_idx[axis][i] = min(max(static_cast<int>(start), 0), size - 2);
+    s.ratio[axis][i] = __fsub_rn(coord, start);
+    s.inside[axis][i] = coord >= 0.f && coord < static_cast<float>(size);
+    s.idx[axis][i] = min(max(static_cast<int>(start), 0), size - 2);
   }
-  if (threadIdx.x == 0) s_b = min(max(static_cast<int>(roi[0]), 0), B - 1);
+  if (threadIdx.x == 0) s.b = min(max(static_cast<int>(roi[0]), 0), B - 1);
+}
+
+template <typename T, bool VEC_OK>
+__global__ void __launch_bounds__(NTHREADS) roi_align_avg_kernel(
+    const T* __restrict__ feat,     // [B][H][W][C]
+    const float* __restrict__ rois, // [R][5] (batch_idx, x1, y1, x2, y2)
+    T* __restrict__ out,            // [R][P][P][C]
+    int B, int H, int W, int C, float spatial_scale) {
+  __shared__ RoiCoords s;
+  const int r = blockIdx.x;
+  roi_coords(s, rois + static_cast<size_t>(r) * 5, spatial_scale, B, H, W);
   __syncthreads();
 
   const int py = threadIdx.x >> 5;
   const int c = blockIdx.y * CHUNK + (threadIdx.x & 31) * VEC;
   if (c >= C) return;
   const size_t row_stride = static_cast<size_t>(W) * C;
-  const T* fb = feat + static_cast<size_t>(s_b) * H * row_stride + c;
+  const T* fb = feat + static_cast<size_t>(s.b) * H * row_stride + c;
   T* ob = out + (static_cast<size_t>(r) * P + py) * P * C + c;
 
   // sample rows py and py + 1: their corner rows, ratios, inside flags
@@ -108,18 +126,18 @@ __global__ void __launch_bounds__(NTHREADS) roi_align_avg_kernel(
   bool yin[2];
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    row[k][0] = fb + s_idx[0][py + k] * row_stride;
+    row[k][0] = fb + s.idx[0][py + k] * row_stride;
     row[k][1] = row[k][0] + row_stride;
-    hr[k] = s_ratio[0][py + k];
-    yin[k] = s_inside[0][py + k];
+    hr[k] = s.ratio[0][py + k];
+    yin[k] = s.inside[0][py + k];
   }
 
   float prev[VEC];  // the column sum (both sample rows) of column sx - 1
 #pragma unroll
   for (int sx = 0; sx < A; ++sx) {
-    const float wr = s_ratio[1][sx];
-    const bool xin = s_inside[1][sx];
-    const size_t o = static_cast<size_t>(s_idx[1][sx]) * C;
+    const float wr = s.ratio[1][sx];
+    const bool xin = s.inside[1][sx];
+    const size_t o = static_cast<size_t>(s.idx[1][sx]) * C;
     float col[VEC];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) col[j] = 0.f;
@@ -163,6 +181,137 @@ cudaError_t launch(const void* feat, const float* rois, void* out, int R, int B,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward: d features [B, H, W, C] from d pooled [R, 7, 7, C], the same
+// geometry. Replaces no Pallas kernel: the JAX package computes it in XLA
+// (rlobjectdetection_tpu/ops/roi_align_vjp.py::_bwd, a sorted scatter-add
+// behind the 2x2 mean of roi_align_avg_cvjp); the reference's own op had a
+// CUDA backward of this shape (atomicAdd into the features' gradient).
+//
+// What bounds it: bytes. Each input read once and each output written once
+// is d pooled and d features (at the flagship's train shape, 2 x 128 rois at
+// C = 1024 on a 50 x 76 map in bf16: 25.7 MB + 15.6 MB, 0.0123 ms at
+// 3.35 TB/s). This first design is simple and right rather than fast:
+//  - a CTA is one roi x 256 channels; warp w is sample row w (8 warps) and
+//    lane l takes channels l, l + 32, ..., l + 224 of the chunk, so each
+//    warp access, load or atomic, is 32 consecutive elements;
+//  - walking the 8 sample columns, a thread keeps the pooled column sums of
+//    the previous column (the sliding form of the forward's 2x2 mean): a
+//    sample's gradient is 1/4 of the up to four pooled cells it feeds, 0
+//    outside the image;
+//  - it adds that gradient times its four bilinear weights into its four
+//    corners with f32 atomicAdd (fire-and-forget reductions in L2) into a
+//    zeroed f32 scratch of the whole map; bf16 then takes one cast pass.
+// The scratch is the design's overhead above the bound: 4 bytes an element
+// zeroed, reduced into and (bf16) read back, 31.1 MB at that shape.
+// Atomics add in whatever order the CTAs reach L2, so the f32 sums differ
+// from run to run in their last bits: checks hold it to a tolerance.
+constexpr int BWD_THREADS = 32 * A;   // warp w: sample row w
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS) roi_align_avg_bwd_kernel(
+    const T* __restrict__ grad,      // [R][P][P][C]
+    const float* __restrict__ rois,  // [R][5]
+    float* __restrict__ dfeat,       // [B][H][W][C], zeroed
+    int B, int H, int W, int C, float spatial_scale) {
+  __shared__ RoiCoords s;
+  const int r = blockIdx.x;
+  roi_coords(s, rois + static_cast<size_t>(r) * 5, spatial_scale, B, H, W);
+  __syncthreads();
+
+  const int sy = threadIdx.x >> 5;
+  if (!s.inside[0][sy]) return;
+  const int c0 = blockIdx.y * CHUNK + (threadIdx.x & 31);
+  const size_t row_stride = static_cast<size_t>(W) * C;
+  float* d_up = dfeat + (static_cast<size_t>(s.b) * H + s.idx[0][sy]) * row_stride + c0;
+  float* d_dn = d_up + row_stride;
+  const float h = s.ratio[0][sy];
+  // the pooled rows this sample row feeds: sy - 1 and sy, where in [0, P)
+  const bool up = sy > 0, dn = sy < P;
+  const T* g_up = grad + (static_cast<size_t>(r) * P + max(sy - 1, 0)) * P * C + c0;
+  const T* g_dn = grad + (static_cast<size_t>(r) * P + min(sy, P - 1)) * P * C + c0;
+
+  float prev[VEC];  // pooled column sum of column sx - 1 (0 before column 0)
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) prev[j] = 0.f;
+#pragma unroll
+  for (int sx = 0; sx < A; ++sx) {
+    float col[VEC];  // pooled column sum of column sx (0 past column P - 1)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      col[j] = 0.f;
+      if (sx < P && c0 + 32 * j < C) {
+        const size_t o = static_cast<size_t>(sx) * C + 32 * j;
+        if (up) col[j] += to_f(g_up[o]);
+        if (dn) col[j] += to_f(g_dn[o]);
+      }
+    }
+    if (s.inside[1][sx]) {
+      const float wr = s.ratio[1][sx];
+      const float w_ul = (1.f - h) * (1.f - wr), w_ur = (1.f - h) * wr;
+      const float w_dl = h * (1.f - wr), w_dr = h * wr;
+      const size_t o = static_cast<size_t>(s.idx[1][sx]) * C;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        if (c0 + 32 * j >= C) continue;
+        const float g = 0.25f * (prev[j] + col[j]);
+        const size_t oj = o + 32 * j;
+        atomicAdd(d_up + oj, g * w_ul);
+        atomicAdd(d_up + oj + C, g * w_ur);
+        atomicAdd(d_dn + oj, g * w_dl);
+        atomicAdd(d_dn + oj + C, g * w_dr);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) prev[j] = col[j];
+  }
+}
+
+// f32 -> bf16, 8 elements a thread when VEC_OK (n % 8 == 0, 16-byte aligned)
+template <bool VEC_OK>
+__global__ void cast_bf16_kernel(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+                                 size_t n) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  if constexpr (VEC_OK) {
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n / VEC;
+         i += stride) {
+      float v[VEC];
+      load8(src + i * VEC, v);
+      store8(dst + i * VEC, v);
+    }
+  } else {
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += stride)
+      dst[i] = __float2bfloat16_rn(src[i]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* grad, const float* rois, float* scratch, int R, int B, int H,
+                       int W, int C, float spatial_scale, cudaStream_t stream) {
+  const dim3 grid(R, (C + CHUNK - 1) / CHUNK);
+  roi_align_avg_bwd_kernel<T><<<grid, BWD_THREADS, 0, stream>>>(
+      static_cast<const T*>(grad), rois, scratch, B, H, W, C, spatial_scale);
+  return cudaGetLastError();
+}
+
+cudaError_t cast_bf16(const float* src, void* dst, size_t n, cudaStream_t stream) {
+  const bool vec = n % VEC == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const size_t items = vec ? n / VEC : n;
+  const int threads = 256;
+  const int blocks = static_cast<int>(std::min<size_t>((items + threads - 1) / threads, 132 * 16));
+  if (blocks == 0) return cudaSuccess;
+  if (vec)
+    cast_bf16_kernel<true><<<blocks, threads, 0, stream>>>(
+        src, static_cast<__nv_bfloat16*>(dst), n);
+  else
+    cast_bf16_kernel<false><<<blocks, threads, 0, stream>>>(
+        src, static_cast<__nv_bfloat16*>(dst), n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int rlod_roi_align_avg_fwd(const void* feat, const void* rois, void* out,
@@ -178,5 +327,29 @@ extern "C" int rlod_roi_align_avg_fwd(const void* feat, const void* rois, void* 
     err = launch<__nv_bfloat16>(feat, rf, out, R, B, H, W, C, spatial_scale, s);
   else
     err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// d features of RoIAlignAvg. `scratch` is an f32 [B, H, W, C] buffer, zeroed
+// here; for f32 features it is the output itself (dfeat == scratch), for
+// bf16 the sums are cast into dfeat at the end. R == 0 gives zeros.
+extern "C" int rlod_roi_align_avg_bwd(const void* grad, const void* rois, void* scratch,
+                                      void* dfeat, int R, int B, int H, int W, int C,
+                                      float spatial_scale, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* rf = static_cast<const float*>(rois);
+  float* acc = static_cast<float*>(scratch);
+  const size_t n = static_cast<size_t>(B) * H * W * C;
+  if (dtype != RLOD_F32 && dtype != RLOD_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == RLOD_F32 && dfeat != scratch) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(acc, 0, n * sizeof(float), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R > 0) {
+    err = dtype == RLOD_F32
+              ? launch_bwd<float>(grad, rf, acc, R, B, H, W, C, spatial_scale, s)
+              : launch_bwd<__nv_bfloat16>(grad, rf, acc, R, B, H, W, C, spatial_scale, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dtype == RLOD_BF16) err = cast_bf16(acc, dfeat, n, s);
   return static_cast<int>(err);
 }

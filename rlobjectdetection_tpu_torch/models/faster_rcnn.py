@@ -1,16 +1,21 @@
-"""Faster R-CNN detector, eval forward (counterpart of
+"""Faster R-CNN detector, eval and train forward (counterpart of
 `rlobjectdetection_tpu/models/faster_rcnn.py`).
 
-backbone → RPN → proposal layer → RoIAlignAvg → head (ResNet layer4, or
-VGG-16 fc6/fc7) → class probabilities + per-class box regression.
-Parameters are f32; compute runs in cfg.DTYPE. Module and parameter names
-follow the JAX param tree (`base/layer1/block0/conv1/kernel` is
-`base.layer1.block0.conv1.weight`, `head/fc6/kernel` is `head.fc6.weight`),
-which is what `engine/checkpoint.py` maps.
+backbone → RPN → proposal layer → (train: proposal-target sampling) →
+RoIAlignAvg → head (ResNet layer4, or VGG-16 fc6/fc7) → class probabilities
++ per-class box regression (train: the group of each roi's label) → (train:
+the RPN and R-CNN cross-entropy and smooth-L1 losses). Parameters are f32;
+compute runs in cfg.DTYPE. Module and parameter names follow the JAX param
+tree (`base/layer1/block0/conv1/kernel` is `base.layer1.block0.conv1.weight`,
+`head/fc6/kernel` is `head.fc6.weight`), which is what
+`engine/checkpoint.py` maps.
 
-The port serves the ResNet and VGG-16 backbones with POOLING_MODE "align".
-Training and the pool / crop modes are later slices (ROADMAP.md §1), and
-asking for them raises.
+The frozen backbone stages (RESNET.FIXED_BLOCKS) take no gradient; every
+other parameter requires grad, and the eval forward runs under
+`torch.no_grad()`. The port serves the ResNet and VGG-16 backbones and
+trains the ResNet ones, with POOLING_MODE "align". VGG-16 training and the
+pool / crop modes are later slices (ROADMAP.md §1), and asking for them
+raises.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from ..device import compute_dtype, resolve_device
 from ..ops.roi_align_kernel import roi_align_avg
 from .backbones.resnet import Conv2d, Dense, ResNetBase, ResNetHead
 from .backbones.vgg import VGGBase, VGGHead
+from .losses import smooth_l1_loss, softmax_cross_entropy
 from .rpn import RPNHead, proposal_layer, rpn_fg_probs
+from .targets import anchor_target, proposal_target, uniform_source
 
 
 class FasterRCNN(nn.Module):
@@ -65,46 +72,123 @@ class FasterRCNN(nn.Module):
         self.RCNN_cls_score = Dense(head_ch, num_classes)
         self.RCNN_bbox_pred = Dense(head_ch, 4 if class_agnostic else 4 * num_classes)
         init_weights(self, seed)
-        self.requires_grad_(False)
         self.to(dev)
 
-    def proposals(self, base_feat: torch.Tensor, im_info: torch.Tensor):
-        """RPN + proposal layer: (rois `[B, R, 5]`, roi_scores, roi_valid)."""
-        c = self.cfg
+    def proposals(self, base_feat: torch.Tensor, im_info: torch.Tensor, phase=None):
+        """RPN + proposal layer at `phase`'s top-N and NMS threshold
+        (cfg.TRAIN or cfg.TEST, the default): (rois `[B, R, 5]`, roi_scores,
+        roi_valid)."""
         rpn_cls, rpn_delta = self.rpn(base_feat)
+        return self._propose(rpn_cls, rpn_delta, im_info, phase or self.cfg.TEST)
+
+    def _propose(self, rpn_cls, rpn_delta, im_info, phase):
+        """The proposal layer on detached RPN outputs."""
+        c = self.cfg
         return proposal_layer(
-            rpn_fg_probs(rpn_cls, self.num_anchors), rpn_delta, im_info,
+            rpn_fg_probs(rpn_cls, self.num_anchors).detach(), rpn_delta.detach(), im_info,
             feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
-            anchor_ratios=c.ANCHOR_RATIOS, pre_nms_top_n=c.TEST.RPN_PRE_NMS_TOP_N,
-            post_nms_top_n=c.TEST.RPN_POST_NMS_TOP_N, nms_thresh=c.TEST.RPN_NMS_THRESH,
+            anchor_ratios=c.ANCHOR_RATIOS, pre_nms_top_n=phase.RPN_PRE_NMS_TOP_N,
+            post_nms_top_n=phase.RPN_POST_NMS_TOP_N, nms_thresh=phase.RPN_NMS_THRESH,
             nms_tile=c.NMS_TILE)
+
+    def _scores(self, base_feat: torch.Tensor, rois: torch.Tensor):
+        """RoIAlignAvg + head + classifiers for rois `[B, R, 5]`: (cls_score
+        `[B·R, C]` f32, bbox_pred `[B·R, 4C]` f32)."""
+        pooled = roi_align_avg(base_feat.contiguous(), rois.reshape(-1, 5).contiguous(),
+                               self.cfg.POOLING_SIZE, 1.0 / 16.0).to(self.dtype)
+        feat = self.head(pooled)                           # [B*R, 2048 | 4096]
+        return self.RCNN_cls_score(feat).float(), self.RCNN_bbox_pred(feat).float()
 
     def detect_head(self, base_feat: torch.Tensor, rois: torch.Tensor):
         """RoIAlignAvg + head + classifiers for rois `[B, R, 5]`: (cls_prob
         `[B, R, C]` f32 softmax, bbox_pred `[B, R, 4C]` f32)."""
         b, r = rois.shape[:2]
-        pooled = roi_align_avg(base_feat.contiguous(), rois.reshape(-1, 5).contiguous(),
-                               self.cfg.POOLING_SIZE, 1.0 / 16.0).to(self.dtype)
-        feat = self.head(pooled)                           # [B*R, 2048 | 4096]
-        cls_score = self.RCNN_cls_score(feat).float()
-        bbox_pred = self.RCNN_bbox_pred(feat).float()
+        cls_score, bbox_pred = self._scores(base_feat, rois)
         cls_prob = torch.softmax(cls_score, dim=-1)
         return cls_prob.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)
 
-    def forward(self, im_data: torch.Tensor, im_info: torch.Tensor, *, train: bool = False):
+    def forward(self, im_data: torch.Tensor, im_info: torch.Tensor, gt_boxes=None,
+                num_boxes=None, *, train: bool = False, generator=None):
         """im_data `[B, H, W, 3]` (BGR, pixel means subtracted); im_info
-        `[B, 3]` (h, w, scale). Returns {rois, roi_valid, cls_prob, bbox_pred}."""
-        if train:
+        `[B, 3]` (h, w, scale). Eval (no gradient) returns {rois, roi_valid,
+        cls_prob, bbox_pred}. Train takes gt_boxes `[B, G, 5]` (x1, y1, x2,
+        y2, cls; zero rows pad) and `generator` (a torch.Generator on the
+        model's device, or a `targets.Uniform` source) for the sampling, and
+        returns also the four losses and rois_label `[B, R]`, with rois the
+        sampled ones and bbox_pred each roi's label group. num_boxes is
+        unused (the zero rows mark the padding), as in the JAX model."""
+        if not train:
+            # eval takes no gradient, so the frozen-stage kernels
+            # (STAGE_FUSED) engage whatever FIXED_BLOCKS says, as in the JAX
+            # model
+            with torch.no_grad():
+                base_feat = (self.base(im_data, fwd_only=True)
+                             if isinstance(self.base, ResNetBase) else self.base(im_data))
+                rois, _, roi_valid = self.proposals(base_feat, im_info)
+                cls_prob, bbox_pred = self.detect_head(base_feat, rois)
+            return dict(rois=rois, roi_valid=roi_valid, cls_prob=cls_prob, bbox_pred=bbox_pred)
+        if not isinstance(self.base, ResNetBase):
             raise NotImplementedError(
-                "the train forward (targets, losses, train step) is the training "
-                "slice, ROADMAP.md §1 item 11")
-        # eval takes no gradient, so the frozen-stage kernels (STAGE_FUSED)
-        # engage whatever FIXED_BLOCKS says, as in the JAX model
-        base_feat = (self.base(im_data, fwd_only=True) if isinstance(self.base, ResNetBase)
-                     else self.base(im_data))
-        rois, _, roi_valid = self.proposals(base_feat, im_info)
-        cls_prob, bbox_pred = self.detect_head(base_feat, rois)
-        return dict(rois=rois, roi_valid=roi_valid, cls_prob=cls_prob, bbox_pred=bbox_pred)
+                "VGG-16 training (fc6/fc7 dropout, the frozen blocks 1-2, clip 10) is a later "
+                "slice, ROADMAP.md §1 item 20")
+        if self.cfg.TRAIN.RPN_POSITIVE_WEIGHT >= 0:
+            # only the uniform branch exists: the reference's non-uniform one
+            # is broken upstream, so a setting that asks for it is refused
+            raise ValueError("TRAIN.RPN_POSITIVE_WEIGHT >= 0 (non-uniform anchor weighting) is "
+                             "not implemented")
+        if gt_boxes is None or generator is None:
+            raise ValueError("the train forward needs gt_boxes and a generator")
+        return self._train_forward(im_data, im_info, gt_boxes,
+                                   uniform_source(generator, im_data.device))
+
+    def _train_forward(self, im_data, im_info, gt_boxes, uniform):
+        c, t = self.cfg, self.cfg.TRAIN
+        b, a = im_data.shape[0], self.num_anchors
+        base_feat = self.base(im_data)
+        rpn_cls, rpn_delta = self.rpn(base_feat)
+        rois, _, _ = self._propose(rpn_cls, rpn_delta, im_info, t)
+
+        at = anchor_target(
+            uniform, tuple(base_feat.shape[1:3]), gt_boxes, im_info,
+            feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
+            anchor_ratios=c.ANCHOR_RATIOS, rpn_batch_size=t.RPN_BATCHSIZE,
+            fg_fraction=t.RPN_FG_FRACTION, positive_overlap=t.RPN_POSITIVE_OVERLAP,
+            negative_overlap=t.RPN_NEGATIVE_OVERLAP, clobber_positives=t.RPN_CLOBBER_POSITIVES)
+        # the RPN's 2-way logits per anchor, in the targets' (h, w, a) order
+        logits2 = torch.stack([rpn_cls[..., :a].reshape(b, -1),
+                               rpn_cls[..., a:].reshape(b, -1)], dim=-1)
+        rpn_loss_cls = softmax_cross_entropy(logits2, at.labels.clamp_min(0), at.labels >= 0)
+        rpn_loss_box = smooth_l1_loss(rpn_delta.float().reshape(b, -1, 4), at.bbox_targets,
+                                      at.bbox_inside_weights, at.bbox_outside_weights,
+                                      sigma=3.0, reduce_dims=(1, 2))
+
+        pt = proposal_target(
+            uniform, rois, gt_boxes, rois_per_image=t.BATCH_SIZE, fg_fraction=t.FG_FRACTION,
+            fg_thresh=t.FG_THRESH, bg_thresh_hi=t.BG_THRESH_HI, bg_thresh_lo=t.BG_THRESH_LO,
+            bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
+            bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
+            bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS,
+            normalize_targets=t.BBOX_NORMALIZE_TARGETS_PRECOMPUTED)
+        r = pt.rois.shape[1]
+        cls_score, bbox_pred = self._scores(base_feat, pt.rois)
+        labels = pt.labels.reshape(-1)
+        if not self.class_agnostic:
+            # each roi's regression group, picked by its label (one-hot, as
+            # the JAX model does)
+            sel = torch.nn.functional.one_hot(labels.long(), self.num_classes).float()
+            bbox_pred = torch.einsum("ncd,nc->nd",
+                                     bbox_pred.reshape(-1, self.num_classes, 4), sel)
+        rcnn_loss_cls = softmax_cross_entropy(cls_score, labels)
+        rcnn_loss_bbox = smooth_l1_loss(bbox_pred, pt.bbox_targets.reshape(-1, 4),
+                                        pt.bbox_inside_weights.reshape(-1, 4),
+                                        pt.bbox_outside_weights.reshape(-1, 4),
+                                        sigma=1.0, reduce_dims=(-1,))
+        return dict(
+            rois=pt.rois, roi_valid=torch.ones((b, r), dtype=torch.bool, device=pt.rois.device),
+            cls_prob=torch.softmax(cls_score, dim=-1).reshape(b, r, -1),
+            bbox_pred=bbox_pred.reshape(b, r, -1), rpn_loss_cls=rpn_loss_cls,
+            rpn_loss_box=rpn_loss_box, rcnn_loss_cls=rcnn_loss_cls,
+            rcnn_loss_bbox=rcnn_loss_bbox, rois_label=pt.labels)
 
 
 def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:

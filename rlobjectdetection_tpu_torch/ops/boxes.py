@@ -1,8 +1,9 @@
 """Box geometry with the Caffe "+1 width" convention.
 
 Counterpart of `rlobjectdetection_tpu/ops/boxes.py` (box_wh_ctr,
-bbox_transform_inv, clip_boxes, bbox_overlaps): batched, fixed-shape tensor
-functions on `[..., 4]` boxes in (x1, y1, x2, y2).
+bbox_transform, bbox_transform_inv, clip_boxes, bbox_overlaps,
+bbox_overlaps_masked): batched, fixed-shape tensor functions on `[..., 4]`
+boxes in (x1, y1, x2, y2).
 """
 
 from __future__ import annotations
@@ -17,6 +18,15 @@ def box_wh_ctr(boxes: torch.Tensor):
     cx = boxes[..., 0] + 0.5 * w
     cy = boxes[..., 1] + 0.5 * h
     return w, h, cx, cy
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Encode gt boxes relative to example rois → `[..., 4]` (dx, dy, dw, dh);
+    broadcastable leading dims."""
+    ex_w, ex_h, ex_cx, ex_cy = box_wh_ctr(ex_rois)
+    gt_w, gt_h, gt_cx, gt_cy = box_wh_ctr(gt_rois)
+    return torch.stack([(gt_cx - ex_cx) / ex_w, (gt_cy - ex_cy) / ex_h,
+                        torch.log(gt_w / ex_w), torch.log(gt_h / ex_h)], dim=-1)
 
 
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
@@ -72,3 +82,18 @@ def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor) -> torch.Tenso
     """Pairwise IoU: boxes `[..., N, 4]`, query_boxes `[..., K, 4]` → `[..., N, K]`."""
     inter, union = _inter_union(boxes, query_boxes)
     return inter / union
+
+
+def bbox_overlaps_masked(anchors: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """Batched IoU with the zero-area sentinels: a gt box of zero area (the
+    all-zero padding rows, w = h = 1 under the +1 convention) overlaps 0, an
+    anchor of zero area -1. anchors `[..., N, 4]`, gt_boxes `[..., K, 4+]`
+    (first 4 columns used) → `[..., N, K]`."""
+    gt = gt_boxes[..., :4]
+    ov = bbox_overlaps(anchors, gt)
+    gt_zero = ((gt[..., 2] - gt[..., 0] + 1.0) == 1.0) & ((gt[..., 3] - gt[..., 1] + 1.0) == 1.0)
+    an_zero = (((anchors[..., 2] - anchors[..., 0] + 1.0) == 1.0)
+               & ((anchors[..., 3] - anchors[..., 1] + 1.0) == 1.0))
+    zero = torch.zeros((), dtype=ov.dtype, device=ov.device)
+    ov = torch.where(gt_zero[..., None, :], zero, ov)
+    return torch.where(an_zero[..., :, None], zero - 1.0, ov)

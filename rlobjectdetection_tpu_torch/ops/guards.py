@@ -1,11 +1,12 @@
 """The rule every forward-only kernel wrapper keeps.
 
-The fused kernels (stem, layer1, VGG block 1, the residual stage,
-RoIAlignAvg) have no backward: each wrapper runs under `torch.no_grad()`.
-So that this never cuts a gradient without a word, a wrapper first calls
-`forward_only`, which raises where autograd would need the op's gradient,
-on the CPU as on the card: the plain version the CPU runs must not give a
-gradient the kernel cannot.
+The fused backbone kernels (stem, layer1, VGG block 1, the residual stage)
+have no backward: each wrapper runs under `torch.no_grad()`. So that this
+never cuts a gradient without a word, a wrapper first calls `forward_only`,
+which raises where autograd would need the op's gradient, on the CPU as on
+the card: the plain version the CPU runs must not give a gradient the
+kernel cannot. (RoIAlignAvg has a backward kernel and an autograd Function,
+`roi_align_kernel.py`, so it needs no such rule.)
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ to H-2 / W-2, and cells whose sample falls outside [0, H) × [0, W) set to 0.
 RoIAlignAvg runs align at (P+1)² then a stride-1 2×2 mean.
 
 Features are NHWC, so each of the four corner fetches is a gather of whole
-C-rows. This module is the plain version the CUDA kernel
-(`roi_align_kernel.py`) is held against; it is what runs on CPU tensors.
+C-rows. This module holds the plain versions the CUDA kernels
+(`roi_align_kernel.py`) are held against, forward and backward; they are
+what runs on CPU tensors.
 """
 
 from __future__ import annotations
@@ -77,3 +78,35 @@ def roi_align_avg(features: torch.Tensor, rois: torch.Tensor, pooled_size: int =
     """RoIAlignAvg: (P+1)² align then stride-1 2×2 mean → `[R, P, P, C]`."""
     x = roi_align(features, rois, pooled_size + 1, pooled_size + 1, spatial_scale)
     return 0.25 * (x[:, :-1, :-1] + x[:, :-1, 1:] + x[:, 1:, :-1] + x[:, 1:, 1:])
+
+
+def roi_align_avg_backward(grad: torch.Tensor, rois: torch.Tensor, feat_shape,
+                           dtype: torch.dtype, spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """The features' gradient of `roi_align_avg`: grad `[R, P, P, C]`, rois
+    `[R, 5]`, feat_shape (B, H, W, C) → `[B, H, W, C]` in `dtype`.
+
+    As JAX `roi_align_avg_cvjp` (its `_bwd` behind the 2×2 mean): the mean
+    spreads each pooled cell's gradient ¼ to its four samples; samples
+    outside the image get zero; each sample adds its gradient times its four
+    bilinear weights into its four corners. The sums run in f32 and are cast
+    once to `dtype`. The rois get no gradient."""
+    b, h, w, c = feat_shape
+    r, p = grad.shape[0], grad.shape[1]
+    a = p + 1
+    g = 0.25 * grad.float()
+    gs = torch.zeros((r, a, a, c), dtype=torch.float32, device=grad.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            gs[:, dy:dy + p, dx:dx + p] += g
+    batch_idx, hs, ws_, h_ratio, w_ratio, inside = roi_align_coords(rois, h, w, a, a,
+                                                                    spatial_scale)
+    gs = torch.where(inside[..., None], gs, torch.zeros((), device=gs.device))
+    hr = h_ratio[:, :, None, None]
+    wr = w_ratio[:, None, :, None]
+    base = (batch_idx * h)[:, None] + hs
+    idx_ul = (base[:, :, None] * w + ws_[:, None, :]).long().reshape(-1)
+    flat = torch.zeros((b * h * w, c), dtype=torch.float32, device=grad.device)
+    for offset, weight in ((0, (1.0 - hr) * (1.0 - wr)), (1, (1.0 - hr) * wr),
+                           (w, hr * (1.0 - wr)), (w + 1, hr * wr)):
+        flat.index_add_(0, idx_ul + offset, (weight * gs).reshape(-1, c))
+    return flat.reshape(b, h, w, c).to(dtype)

@@ -383,3 +383,108 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         roi_align_kernel.roi_align_avg(torch.zeros(1, 5, 5, 8, device=cuda),
                                        torch.zeros(3, 5, device=cuda), pooled_size=6)
+
+
+# The RoIAlignAvg backward kernel sums with f32 atomics in an order that
+# changes from run to run, its plain version with index_add_: in f32 they
+# agree to 1e-5 of the largest gradient; in bf16 both round their f32 sums
+# once, so an element may round to its neighbour (one bf16 step).
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: ONE_BF16_STEP}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_images,h,w,c,r", [
+    (2, 50, 76, 1024, 256),    # the flagship's train step: 2 x 128 rois
+    (1, 50, 76, 512, 300),     # VGG-16's channels
+    (2, 9, 11, 64, 7),         # small, rois mostly over the border
+    (2, 13, 17, 36, 40),       # C not a multiple of 8, one partial channel chunk
+    (1, 50, 76, 1024, 0),      # no rois: zeros
+])
+def test_roi_align_bwd_kernel_matches_plain(cuda, dtype, n_images, h, w, c, r):
+    rng = np.random.RandomState(c + r)
+    rois = torch.from_numpy(_rois(rng, r, n_images, 16 * h, 16 * w)).to(cuda)
+    grad = torch.from_numpy(rng.randn(r, 7, 7, c).astype(np.float32)).to(cuda, dtype)
+    shape = (n_images, h, w, c)
+    n0 = roi_align_kernel.roi_align_avg_bwd.launches
+    got = roi_align_kernel.roi_align_avg_bwd(grad, rois, shape)
+    torch.cuda.synchronize()
+    assert roi_align_kernel.roi_align_avg_bwd.launches == n0 + 1
+    assert got.dtype == dtype and tuple(got.shape) == shape
+    want = roi_align.roi_align_avg_backward(grad, rois, shape, dtype)
+    if r == 0:
+        assert not got.float().abs().any()
+        return
+    assert float(want.float().abs().max()) > 0
+    assert max_rel(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_avg_gradient_runs_the_backward_kernel(cuda, dtype):
+    """autograd through `roi_align_avg` on the card: the forward and the
+    backward kernel launch once each, the rois get no gradient, and the
+    features' gradient is the plain backward's."""
+    rng = np.random.RandomState(21)
+    feats = torch.from_numpy(rng.randn(2, 20, 30, 256).astype(np.float32)).to(cuda, dtype)
+    feats.requires_grad_(True)
+    rois = torch.from_numpy(_rois(rng, 50, 2, 320, 480)).to(cuda)
+    g = torch.from_numpy(rng.randn(50, 7, 7, 256).astype(np.float32)).to(cuda, dtype)
+    n0 = (roi_align_kernel.roi_align_avg.launches, roi_align_kernel.roi_align_avg_bwd.launches)
+    roi_align_kernel.roi_align_avg(feats, rois).backward(g)
+    torch.cuda.synchronize()
+    assert (roi_align_kernel.roi_align_avg.launches,
+            roi_align_kernel.roi_align_avg_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    want = roi_align.roi_align_avg_backward(g, rois, tuple(feats.shape), dtype)
+    assert feats.grad.dtype == dtype and max_rel(feats.grad, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_roi_align_bwd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    rois = torch.zeros(3, 5, device=cuda)
+    with pytest.raises(ValueError, match="pooled_size"):
+        roi_align_kernel.roi_align_avg_bwd(torch.zeros(3, 6, 6, 8, device=cuda), rois,
+                                           (1, 5, 5, 8))
+    with pytest.raises(ValueError, match="grad must be"):
+        roi_align_kernel.roi_align_avg_bwd(torch.zeros(3, 7, 7, 8, device=cuda), rois,
+                                           (1, 5, 5, 16))
+    with pytest.raises(ValueError, match="rois must be"):
+        roi_align_kernel.roi_align_avg_bwd(torch.zeros(3, 7, 7, 8, device=cuda), rois.cpu(),
+                                           (1, 5, 5, 8))
+
+
+@pytest.mark.gpu
+def test_train_step_bf16_on_the_card(cuda):
+    """One bf16 ResNet-50 train step on the card (stem, layer1 and both
+    RoIAlignAvg kernels) at 256x320, batch 2: finite losses, the kernels
+    launched, the trainable parameters moved and the frozen ones not."""
+    from rlobjectdetection_tpu_torch.config import Config, TrainConfig
+    from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+
+    cfg = Config(TRAIN=TrainConfig(RPN_PRE_NMS_TOP_N=2000, RPN_POST_NMS_TOP_N=256),
+                 ANCHOR_SCALES=(4, 8, 16, 32), CONV1_FUSED=True, LAYER1_FUSED=True)
+    model = FasterRCNN(21, "resnet50", cfg, device=cuda, seed=4)
+    opt, sched, labels = build_optimizer(model, "resnet50", base_lr=0.001)
+    rng = np.random.RandomState(6)
+    gt = np.zeros((2, 10, 5), np.float32)
+    gt[:, :3, :2] = rng.rand(2, 3, 2) * 200
+    gt[:, :3, 2:4] = gt[:, :3, :2] + 30 + rng.rand(2, 3, 2) * 80
+    gt[:, :3, 4] = rng.randint(1, 21, (2, 3))
+    batch = {"data": torch.from_numpy(rng.randn(2, 256, 320, 3).astype(np.float32) * 10),
+             "im_info": torch.tensor([[256.0, 320.0, 1.0]] * 2), "gt_boxes": torch.from_numpy(gt),
+             "num_boxes": torch.tensor([3, 3])}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    counters = (stem_kernel.fused_stem, layer1_kernel.fused_layer1,
+                roi_align_kernel.roi_align_avg, roi_align_kernel.roi_align_avg_bwd)
+    n0 = [f.launches for f in counters]
+    metrics = make_train_step(model, opt, sched)(batch, torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(metrics[k])) for k in ("loss", "rpn_cls", "rpn_box", "rcnn_cls",
+                                                         "rcnn_box"))
+    assert int(metrics["fg_cnt"]) + int(metrics["bg_cnt"]) == 2 * cfg.TRAIN.BATCH_SIZE
+    assert all(f.launches > n for f, n in zip(counters, n0))
+    after = model.state_dict()
+    for k, v in after.items():
+        assert torch.equal(v, before[k]) == (labels.get(k, "frozen") == "frozen"), k

@@ -1,12 +1,16 @@
-"""The forward-only kernel wrappers raise where they would cut a gradient.
+"""The forward-only kernel wrappers raise where they would cut a gradient;
+RoIAlignAvg, which has a backward kernel, passes the gradient.
 
-`roi_align_avg`, `fused_stem`, `fused_layer1` and `fused_vgg_block1` have no
-backward (neither has the JAX package's Pallas kernels, whose custom_vjps
-raise). On the CPU each runs its plain version, which autograd could
-differentiate; the wrapper must not, or the CPU would give a gradient the
-card cannot. So, on the CPU: each raises when grad is enabled and its input,
-or a weight it reads, requires grad; under `torch.no_grad()`, and with
-frozen weights and a plain input, it returns exactly its plain result.
+`fused_stem`, `fused_layer1` and `fused_vgg_block1` have no backward
+(neither has the JAX package's Pallas kernels, whose custom_vjps raise). On
+the CPU each runs its plain version, which autograd could differentiate; the
+wrapper must not, or the CPU would give a gradient the card cannot. So, on
+the CPU: each raises when grad is enabled and its input, or a weight it
+reads, requires grad. `roi_align_avg` instead gives the features' gradient
+of its plain backward (`roi_align.roi_align_avg_backward`, what the CPU
+runs in place of the backward kernel). Under `torch.no_grad()`, and with
+frozen weights and a plain input, every wrapper returns exactly its plain
+result.
 """
 
 import numpy as np
@@ -64,12 +68,26 @@ OPS = {"roi_align_avg": _roi_align, "fused_stem": _stem, "fused_layer1": _layer1
        "fused_vgg_block1": _vgg_block1}
 
 
-@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("op", [op for op in OPS if op != "roi_align_avg"])
 def test_raises_when_the_input_requires_grad(op):
     case = OPS[op](np.random.RandomState(1))
     x = case["x"].requires_grad_(True)
     with pytest.raises(RuntimeError, match=f"{op} is forward-only"):
         case["run"](x, case["weights"])
+
+
+def test_roi_align_avg_passes_the_gradient():
+    """Features that require grad get their gradient: exactly the plain
+    backward's, for rois partly outside the map on two images."""
+    case = OPS["roi_align_avg"](np.random.RandomState(1))
+    x = case["x"].requires_grad_(True)
+    out = case["run"](x, case["weights"])
+    assert out.requires_grad and torch.equal(out.detach(), case["plain"](x.detach(), []))
+    g = torch.from_numpy(np.random.RandomState(5).randn(*out.shape).astype(np.float32))
+    out.backward(g)
+    rois = _t([[0, 2, 3, 60, 50], [1, -8, 4, 30, 90], [1, 10, 10, 40, 20]])
+    want = roi_align.roi_align_avg_backward(g, rois, tuple(x.shape), torch.float32)
+    assert torch.equal(x.grad, want) and want.abs().sum() > 0
 
 
 @pytest.mark.parametrize("op", [op for op in OPS if op != "roi_align_avg"])

@@ -263,12 +263,34 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         main(["--image_dir", os.path.dirname(__file__), "--net", "res50"])
 
 
-def test_unported_modes_raise_with_a_roadmap_pointer(models):
+def test_resnet_train_forward_returns_the_four_losses(models, jax_forward):
+    """The ResNet train forward (sampling from a torch.Generator): four
+    finite scalar losses, a gradient to the trainable parameters only, and
+    the sampled rois with their labels; the eval forward takes no gradient."""
     _, _, model, _ = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]), train=True)
-    # VGG-16 serves, but trains no more than ResNet does (a small pooled
-    # size keeps fc6 small)
+    data, info, _, _ = jax_forward
+    gt = torch.zeros(2, 5, 5)
+    gt[:, :2] = torch.tensor([[10.0, 12.0, 60.0, 70.0, 3.0], [40.0, 20.0, 100.0, 80.0, 7.0]])
+    out = model(torch.from_numpy(data), torch.from_numpy(info), gt, train=True,
+                generator=torch.Generator().manual_seed(0))
+    names = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls", "rcnn_loss_bbox")
+    for k in names:
+        assert out[k].shape == () and bool(torch.isfinite(out[k])) and out[k].requires_grad, k
+    r = model.cfg.TRAIN.BATCH_SIZE
+    assert tuple(out["rois"].shape) == (2, r, 5) and tuple(out["rois_label"].shape) == (2, r)
+    assert tuple(out["bbox_pred"].shape) == (2, r, 4) and out["rois_label"].max() > 0
+    sum(out[k] for k in names).backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    assert grads["RCNN_cls_score.weight"] is not None
+    assert grads["base.layer2.block0.conv1.weight"] is not None
+    assert grads["base.conv1.weight"] is None and grads["base.layer1.block0.conv1.weight"] is None
+    model.zero_grad(set_to_none=True)
+    assert not model(torch.from_numpy(data), torch.from_numpy(info))["cls_prob"].requires_grad
+
+
+def test_unported_modes_raise_with_a_roadmap_pointer(models):
+    # VGG-16 serves but does not train yet (a small pooled size keeps fc6
+    # small)
     vgg = FasterRCNN(NUM_CLASSES, "vgg16", Config(DTYPE="float32", POOLING_SIZE=2),
                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
