@@ -41,9 +41,11 @@ Then the detector's train step (the flagship's weights, `bench.py`'s
 synthetic batch at 2 images, SGD at 0.01, bf16 compute): three steps with
 the launch counts of the stem, layer1 and both RoIAlignAvg kernels read over
 them, one step's stages, the RoIAlignAvg backward kernel against its plain
-version (R=256 at C=1024, and a small shape) timed as a CUDA graph of its
-launch, and one whole step with the kernels against the same step with
-their plain versions, in f32 and in bf16, from the first step's parameters.
+version and two of its launches against each other bit for bit (R=256 at
+C=1024 with the rois the first step samples and with those a step samples
+after the three, and a small shape), timed as a CUDA graph of its launch,
+and one whole step with the kernels against the same step with their plain
+versions, in f32 and in bf16, from the first step's parameters.
 
 Every phase raises on failure and the script exits non-zero: no CUDA, a
 kernel that does not build or launch, a kernel that disagrees with its plain
@@ -147,8 +149,9 @@ RL_BOXES, RL_TRAIN_BATCH = 64, 2
 TRAIN_BATCH, TRAIN_STEPS = 2, 3
 TRAIN_LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 TRAIN_UPDATE_TOL = 1e-3
-# The backward kernel sums with f32 atomics, its plain version with
-# index_add_: other orders, so 1e-5 of the largest gradient in f32.
+# The backward kernel sums each element in an order fixed by its inputs, its
+# plain version with index_add_ in another, so 1e-5 of the largest gradient
+# in f32.
 BWD_F32_TOL = 1e-5
 REPS, WARMUP = 20, 3
 
@@ -923,21 +926,25 @@ def train_stages(model, batch, seed: int) -> dict:
 
 def roi_align_bwd_check(label, feat_shape, rois, grad, flush) -> dict:
     """The backward kernel against its plain version on the same inputs: in
-    f32 to 1e-5 of the largest gradient (the kernel's atomics and the plain
-    version's index_add_ sum in other orders); in bf16 both sum in f32 and
-    round once, so an element may round to its neighbour: one bf16 step.
-    Timed as a CUDA graph of the launch, its wrapper as called beside."""
+    f32 to 1e-5 of the largest gradient (the kernel and the plain version's
+    index_add_ sum in other orders); in bf16 both sum in f32 and round once,
+    so an element may round to its neighbour: one bf16 step. Two launches
+    must give the same bits in both dtypes. Timed as a CUDA graph of the
+    launch, its wrapper as called beside."""
     from rlobjectdetection_tpu_torch.ops import roi_align, roi_align_kernel
 
     grad32 = grad.float()
-    parity(f"roi_align_avg_bwd {label}", torch.float32,
-           roi_align_kernel.roi_align_avg_bwd(grad32, rois, feat_shape),
+    got32 = roi_align_kernel.roi_align_avg_bwd(grad32, rois, feat_shape)
+    parity(f"roi_align_avg_bwd {label}", torch.float32, got32,
            roi_align.roi_align_avg_backward(grad32, rois, feat_shape, torch.float32),
            BWD_F32_TOL)
     got = roi_align_kernel.roi_align_avg_bwd(grad, rois, feat_shape)
     err = parity(f"roi_align_avg_bwd {label}", torch.bfloat16, got,
                  roi_align.roi_align_avg_backward(grad, rois, feat_shape, torch.bfloat16),
                  ONE_BF16_STEP)
+    same = (torch.equal(got32, roi_align_kernel.roi_align_avg_bwd(grad32, rois, feat_shape)),
+            torch.equal(got, roi_align_kernel.roi_align_avg_bwd(grad, rois, feat_shape)))
+    check(all(same), f"roi_align_avg_bwd {label}: two launches differ (f32, bf16 equal: {same})")
     # operations this run's rois need: 8 per inside sample (its gradient
     # from the pooled column sums, four weights, four sums) and 4 per pooled
     # cell (its share to the column sums)
@@ -951,8 +958,9 @@ def roi_align_bwd_check(label, feat_shape, rois, grad, flush) -> dict:
                  grad, rois, feat_shape, torch.bfloat16), flush),
              library_ms=None, bound_ms=b_bwd, bound_by=f_bwd)
     print(f"roi_align_avg_bwd {label}: grad {tuple(grad.shape)}, d features {tuple(feat_shape)}, "
-          f"f32 scratch {4 * got.numel()} bytes (zeroed, reduced into, read back: the simple "
-          f"design's overhead above the bound)", flush=True)
+          f"{len(torch.unique(rois, dim=0))} distinct rois; gather by destination row (a CTA a "
+          f"feature row x 256 channels, entries in roi order, sums in registers, no atomics, "
+          f"no scratch): two launches bit-identical in f32 and bf16", flush=True)
     return r
 
 
@@ -1046,12 +1054,20 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
                     if labels.get(k, "frozen") == "frozen" and not torch.equal(v, state0[k])]
     check(not frozen_moved, f"train: frozen tensors changed: {frozen_moved[:4]}")
     del opt, sched, step
+    # the rois a step samples after the three (16 fg + 240 bg), for the
+    # backward kernel below
+    with torch.no_grad():
+        steady_rois = model(batch["data"], batch["im_info"], batch["gt_boxes"], train=True,
+                            generator=torch.Generator(device=dev).manual_seed(7))["rois"]
+    steady_rois = steady_rois.reshape(-1, 5).contiguous()
 
     model.load_state_dict(state0)
     print(f"train step stages ms: {train_stages(model, batch, seed=11)}", flush=True)
 
-    # the backward kernel at the flagship's train shape (the rois a train
-    # forward samples) and at a small shape with rois over the border
+    # the backward kernel at the flagship's train shape, with the rois the
+    # first step samples (the random net's: about 16 copies of each gt box)
+    # and with those of a steady step, and at a small shape with rois over
+    # the border
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
     model.load_state_dict(state0)
     with torch.no_grad():
@@ -1064,8 +1080,10 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
           f"train head inputs {feat_shape} {tuple(rois.shape)}")
     g = torch.Generator(device=dev).manual_seed(5)
     grad = torch.randn((256, 7, 7, 1024), generator=g, device=dev).to(torch.bfloat16)
-    results = {"roi_align_avg_bwd": roi_align_bwd_check("R=256 C=1024", feat_shape, rois, grad,
-                                                        flush)}
+    results = {"roi_align_avg_bwd": roi_align_bwd_check(
+                   "first-step R=256 C=1024", feat_shape, rois, grad, flush),
+               "roi_align_avg_bwd steady": roi_align_bwd_check(
+                   "steady R=256 C=1024", feat_shape, steady_rois, grad, flush)}
     rng = np.random.RandomState(13)
     small = rng.uniform(-40, 160, (7, 4)).astype(np.float32)
     small[:, 2:] = small[:, :2] + rng.uniform(0, 120, (7, 2))
@@ -1117,7 +1135,8 @@ def main() -> None:
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall for {sorted(built)} "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
-    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, res_stage_kernel, stem_kernel,
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, res_stage_kernel,
+                                                 roi_align_kernel, stem_kernel,
                                                  vgg_block1_kernel)
     for dtype in (torch.bfloat16, torch.float32):
         print(f"launch resources {str(dtype)[6:]} (registers a thread, shared memory bytes a "
@@ -1126,7 +1145,8 @@ def main() -> None:
               f"at once): stem {stem_kernel.stem_info(dtype)}, layer1 "
               f"{layer1_kernel.layer1_info(dtype)}, vgg_block1 "
               f"{vgg_block1_kernel.vgg_block1_info(dtype)}, res_stage "
-              f"{res_stage_kernel.res_stage_info(dtype)}", flush=True)
+              f"{res_stage_kernel.res_stage_info(dtype)}, roi_align_avg_bwd "
+              f"{roi_align_kernel.roi_align_bwd_info(dtype)}", flush=True)
 
     # 3. the two served detectors, one after the other (the first freed
     # before the second, so each path's peak memory is its own)
@@ -1153,6 +1173,7 @@ def main() -> None:
     results["res_stage"] = rl_results["res_stage"]
     roi_rl = rl_results.pop("roi_align_avg C=1024 R=64")
     results["roi_align_avg_bwd"] = train_results["roi_align_avg_bwd"]
+    bwd_steady = train_results["roi_align_avg_bwd steady"]
     launches = dict(launches, vgg_block1=vgg_launches["vgg_block1"], roi_align_avg=roi_launches,
                     res_stage=rl_launches["res_stage"],
                     roi_align_avg_bwd=train_launches["roi_align_avg_bwd"])
@@ -1183,6 +1204,8 @@ def main() -> None:
            f"{vgg_launches['roi_align_avg']} in the 3 vgg16 requests", "roi_align_avg C=512")
     report("roi_align_avg", roi_rl, f"{rl_launches['roi_align_avg']} in the RL requests and "
            f"train steps", "roi_align_avg C=1024 R=64")
+    report("roi_align_avg_bwd", bwd_steady, f"{launches['roi_align_avg_bwd']} in "
+           f"{TRAIN_STEPS} detector train steps", "roi_align_avg_bwd steady rois")
     print(f"detector train path launches over {TRAIN_STEPS} steps: {train_launches}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -82,3 +82,24 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
 }
+
+// The kernel's launch resources as the runtime reports them, for the
+// callers' info entry points: registers a thread, shared memory a CTA
+// (static + `dyn_smem` dynamic), CTAs an SM can hold, local bytes a thread
+// (spills).
+template <typename K>
+cudaError_t kernel_info(K kernel, int threads, int dyn_smem, int* info) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, dyn_smem);
+  info[0] = a.numRegs;
+  info[1] = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
+  info[2] = per_sm;
+  info[3] = static_cast<int>(a.localSizeBytes);
+  return err;
+}

@@ -150,27 +150,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The kernel's launch resources as the runtime reports them, for the
-// callers' info entry points: registers a thread, shared memory a CTA
-// (static + `dyn_smem` dynamic), CTAs an SM can hold, local bytes a thread
-// (spills).
-template <typename K>
-cudaError_t kernel_info(K kernel, int threads, int dyn_smem, int* info) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, kernel);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, dyn_smem);
-  info[0] = a.numRegs;
-  info[1] = static_cast<int>(a.sharedSizeBytes) + dyn_smem;
-  info[2] = per_sm;
-  info[3] = static_cast<int>(a.localSizeBytes);
-  return err;
-}
-
 // Grid of a persistent kernel: as many CTAs as the card holds at once (all
 // SMs x CTAs per SM), at most one per tile. Refuses a kernel that fits no
 // SM, which a launch would otherwise leave unreported until it is checked.

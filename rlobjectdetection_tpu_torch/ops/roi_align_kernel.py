@@ -80,8 +80,9 @@ def roi_align_avg_bwd(grad: torch.Tensor, rois: torch.Tensor, feat_shape,
     """The backward kernel (plain `roi_align_avg_backward` on a CPU tensor):
     grad `[R, P, P, C]` f32/bf16 contiguous, rois `[R, 5]` as the forward's,
     feat_shape (B, H, W, C) → d features `[B, H, W, C]` in grad's dtype.
-    f32 atomic sums into a zeroed f32 scratch, so their order, and the last
-    bits of the result, vary from run to run."""
+    A gather by destination row: each element is summed in f32 by the
+    thread that owns it, in an order fixed by the inputs, and written once,
+    so two calls on the same inputs give the same bits."""
     with torch.no_grad():
         if grad.device.type == "cpu":
             return roi_align_avg_backward(grad, rois, feat_shape, grad.dtype, spatial_scale)
@@ -95,16 +96,26 @@ def roi_align_avg_bwd(grad: torch.Tensor, rois: torch.Tensor, feat_shape,
                              f"{tuple(grad.shape)} {grad.dtype}")
         if h < 2 or w < 2:
             raise ValueError(f"roi_align_avg backward: feature map {h}x{w} is smaller than 2x2")
-        scratch = torch.empty((b, h, w, c), dtype=torch.float32, device=grad.device)
-        out = scratch if grad.dtype == torch.float32 else torch.empty_like(scratch,
-                                                                           dtype=grad.dtype)
-        err = _entry("rlod_roi_align_avg_bwd", 4)(
-            grad.data_ptr(), rois.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        out = torch.empty((b, h, w, c), dtype=grad.dtype, device=grad.device)
+        err = _entry("rlod_roi_align_avg_bwd", 3)(
+            grad.data_ptr(), rois.data_ptr(), out.data_ptr(),
             rois.shape[0], b, h, w, c, spatial_scale, _build.dtype_code(grad.dtype),
             torch.cuda.current_stream(grad.device).cuda_stream)
         _build.check(err, "roi_align backward kernel")
         roi_align_avg_bwd.launches += 1
         return out
+
+
+def roi_align_bwd_info(dtype: torch.dtype) -> dict:
+    """Launch resources of the backward kernel for `dtype` as the runtime
+    reports them: registers a thread, shared memory bytes a CTA, CTAs an SM,
+    spill bytes a thread."""
+    fn = _build.load("roi_align").rlod_roi_align_avg_bwd_info
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    buf = (ctypes.c_int * 4)()
+    _build.check(fn(_build.dtype_code(dtype), buf), "roi_align backward info")
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm", "spill_bytes"), buf))
 
 
 class _RoIAlignAvg(torch.autograd.Function):

@@ -385,11 +385,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                        torch.zeros(3, 5, device=cuda), pooled_size=6)
 
 
-# The RoIAlignAvg backward kernel sums with f32 atomics in an order that
-# changes from run to run, its plain version with index_add_: in f32 they
-# agree to 1e-5 of the largest gradient; in bf16 both round their f32 sums
-# once, so an element may round to its neighbour (one bf16 step).
+# The RoIAlignAvg backward kernel sums each element's contributions in f32
+# in an order fixed by the inputs (roi, sample row, sample column), its plain
+# version with index_add_ in another: in f32 they agree to 1e-5 of the
+# largest gradient; in bf16 both round their f32 sums once, so an element
+# may round to its neighbour (one bf16 step). Two launches of the kernel
+# give the same bits.
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: ONE_BF16_STEP}
+
+
+def _check_bwd_kernel(grad, rois, shape, dtype):
+    """One launch against the plain version, and a second launch bit for
+    bit against the first."""
+    n0 = roi_align_kernel.roi_align_avg_bwd.launches
+    got = roi_align_kernel.roi_align_avg_bwd(grad, rois, shape)
+    again = roi_align_kernel.roi_align_avg_bwd(grad, rois, shape)
+    torch.cuda.synchronize()
+    assert roi_align_kernel.roi_align_avg_bwd.launches == n0 + 2
+    assert got.dtype == dtype and tuple(got.shape) == shape
+    assert torch.equal(got, again)
+    want = roi_align.roi_align_avg_backward(grad, rois, shape, dtype)
+    if rois.shape[0] == 0:
+        assert not got.float().abs().any()
+        return
+    assert float(want.float().abs().max()) > 0
+    assert max_rel(got, want) <= BWD_TOL[dtype]
 
 
 @pytest.mark.gpu
@@ -400,23 +420,45 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: ONE_BF16_STEP}
     (2, 9, 11, 64, 7),         # small, rois mostly over the border
     (2, 13, 17, 36, 40),       # C not a multiple of 8, one partial channel chunk
     (1, 50, 76, 1024, 0),      # no rois: zeros
+    (2, 20, 230, 64, 80),      # 230 columns: three column bands of 96
+    (8, 50, 76, 1024, 1024),   # bench.py's train batch: 8 x 128 rois
 ])
 def test_roi_align_bwd_kernel_matches_plain(cuda, dtype, n_images, h, w, c, r):
     rng = np.random.RandomState(c + r)
     rois = torch.from_numpy(_rois(rng, r, n_images, 16 * h, 16 * w)).to(cuda)
     grad = torch.from_numpy(rng.randn(r, 7, 7, c).astype(np.float32)).to(cuda, dtype)
-    shape = (n_images, h, w, c)
-    n0 = roi_align_kernel.roi_align_avg_bwd.launches
-    got = roi_align_kernel.roi_align_avg_bwd(grad, rois, shape)
-    torch.cuda.synchronize()
-    assert roi_align_kernel.roi_align_avg_bwd.launches == n0 + 1
-    assert got.dtype == dtype and tuple(got.shape) == shape
-    want = roi_align.roi_align_avg_backward(grad, rois, shape, dtype)
-    if r == 0:
-        assert not got.float().abs().any()
-        return
-    assert float(want.float().abs().max()) > 0
-    assert max_rel(got, want) <= BWD_TOL[dtype]
+    _check_bwd_kernel(grad, rois, (n_images, h, w, c), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_first_step_rois(cuda, dtype):
+    """The rois of a random net's first train step: 8 boxes an image, each
+    repeated 16 times (proposal_target's fg-only draw), so a row under
+    overlapping boxes carries many entries. The boxes are drawn as bench.py
+    draws its gt boxes: 40-190 pixels a side on an 800 x 1216 image."""
+    rng = np.random.RandomState(8)
+    boxes = np.zeros((16, 5), np.float32)
+    boxes[:, 0] = np.repeat([0, 1], 8)
+    boxes[:, 1:3] = rng.randint(0, [1016, 600], (16, 2))
+    boxes[:, 3:5] = boxes[:, 1:3] + rng.randint(40, 190, (16, 2))
+    rois = torch.from_numpy(np.repeat(boxes, 16, axis=0)).to(cuda)
+    grad = torch.from_numpy(rng.randn(256, 7, 7, 1024).astype(np.float32)).to(cuda, dtype)
+    _check_bwd_kernel(grad, rois, (2, 50, 76, 1024), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_bwd_kernel_many_rois_a_row(cuda, dtype):
+    """1200 rois over one small image: every feature row takes entries from
+    more rois than the kernel gathers at once (512), so it sums them in
+    several batches of gathered rois, in roi order all the same."""
+    rng = np.random.RandomState(9)
+    rois = np.zeros((1200, 5), np.float32)
+    rois[:, 1:3] = rng.uniform(-20, 40, (1200, 2))
+    rois[:, 3:5] = rng.uniform(250, 330, (1200, 2))
+    grad = torch.from_numpy(rng.randn(1200, 7, 7, 64).astype(np.float32)).to(cuda, dtype)
+    _check_bwd_kernel(grad, torch.from_numpy(rois).to(cuda), (1, 20, 20, 64), dtype)
 
 
 @pytest.mark.gpu
