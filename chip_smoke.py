@@ -47,12 +47,28 @@ after the three, and a small shape), timed as a CUDA graph of its launch,
 and one whole step with the kernels against the same step with their plain
 versions, in f32 and in bf16, from the first step's parameters.
 
+Then VGG-16's train step (the served VGG-16's weights, the same batch,
+blocks 1-2 frozen, fc6/fc7 dropout from a seeded generator on the card,
+SGD at 0.01 with the global norm clipped at 10): three bf16 steps with the
+block-1, RoIAlignAvg and backward kernels' launches read over them (one
+each a step), each step's time and gradient norm before the clip, one
+step's stages, the backward kernel at C=512 against its plain version and
+bit for bit against itself (first-step and steady rois), and one whole step
+with the kernels against their plain versions in f32 and in bf16.
+
+Last, the flagship with POOLING_MODE pool, then crop (plain PyTorch on the
+card: XLA in JAX, no TPU kernel): three requests and one request's stages,
+two train steps, the op on the card against the same op on a CPU copy in
+f32 (output and gradient) at a request's and at a later step's rois, and
+the op's times at the request's and the train step's shapes.
+
 Every phase raises on failure and the script exits non-zero: no CUDA, a
 kernel that does not build or launch, a kernel that disagrees with its plain
 version, a request that gives a wrong shape, non-finite values, no valid
 detection, a train step whose loss is not finite, that moves the frozen
 trunk or leaves the head unchanged, a whole train step whose losses or
-updates leave their bounds, or a kernel the path did not launch. The
+updates leave their bounds, a pool or crop result on the card that leaves
+the CPU's, or a kernel the path did not launch. The
 line before the last
 is the card's name and power limit from nvidia-smi; the last line is
 `{"ok": true, "device": {...}}`.
@@ -149,6 +165,21 @@ RL_BOXES, RL_TRAIN_BATCH = 64, 2
 TRAIN_BATCH, TRAIN_STEPS = 2, 3
 TRAIN_LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 TRAIN_UPDATE_TOL = 1e-3
+# VGG-16's step is held to the same bounds. In f32 the two runs' max-pool
+# routes and ReLU gates, where rounding decides them, are taken out of the
+# comparison rather than the bound: the plain run keeps its own forward but
+# sends each pool window's gradient where the kernel run's went, and a
+# conv3_1..conv5_3 output on the other side of 0 takes the kernel run's sign
+# (`models/backbones/vgg_ties.py`). Left so, conv3_1..conv4_3's updates
+# measured 1.6e-3 apart on an H100 (700 W). The decisions so taken must be
+# ties: each window's own max and its routed value, and each flipped
+# output and 0, within 1e-5 of the layer's largest magnitude (f32 block-1
+# outputs differ by 9.3e-7 of their largest between the two paths).
+TIE_SIZE_TOL = 1e-5
+VGG_CLIP = 10.0    # the reference's global-norm clip for VGG-16
+# roi_pool / roi_crop (plain PyTorch) on the card against the CPU in f32:
+# the same formulas; the gathers' gradients sum in other orders on the card.
+ROI_MODE_TOL = 1e-5
 # The backward kernel sums each element in an order fixed by its inputs, its
 # plain version with index_add_ in another, so 1e-5 of the largest gradient
 # in f32.
@@ -526,7 +557,7 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     return results, launches, {k: v.cpu() for k, v in model.state_dict().items()}
 
 
-def vgg16(cfg, images) -> tuple[dict, dict]:
+def vgg16(cfg, images) -> tuple[dict, dict, dict]:
     """VGG-16: three requests, stages, the block-1 kernel and RoIAlignAvg at
     512 channels against their plain versions, the whole VGG base."""
     from rlobjectdetection_tpu_torch.engine.serve import Detector
@@ -588,7 +619,8 @@ def vgg16(cfg, images) -> tuple[dict, dict]:
 
         check(bool(torch.isfinite(base_feat.float()).all()), "vgg16 base_feat is not finite")
         base_check("vgg block-1 kernel", base, data, VGG_BASE_FEAT_TOL)
-    return results, launches
+    # on the host, so the next path's peak memory stays its own
+    return results, launches, {k: v.cpu() for k, v in model.state_dict().items()}
 
 
 def rl_batch(rng, n_images: int) -> dict:
@@ -834,26 +866,33 @@ def train_batch(dev) -> dict:
 
 @contextlib.contextmanager
 def plain_train_path(model):
-    """The train step without its kernels: the plain stem and layer1 modules
-    and the plain RoIAlignAvg, differentiated by autograd; restored after."""
+    """The train step without its kernels: the plain RoIAlignAvg,
+    differentiated by autograd, and the plain stem and layer1 modules
+    (ResNet) or VGG block 1's plain version (the kernel's rounding points);
+    restored after."""
     from rlobjectdetection_tpu_torch.models import faster_rcnn
-    from rlobjectdetection_tpu_torch.ops import roi_align
+    from rlobjectdetection_tpu_torch.models.backbones import vgg
+    from rlobjectdetection_tpu_torch.ops import roi_align, vgg_block1_kernel
 
-    saved = faster_rcnn.roi_align_avg
+    saved = faster_rcnn.roi_align_avg, vgg.fused_vgg_block1
     faster_rcnn.roi_align_avg = roi_align.roi_align_avg
+    vgg.fused_vgg_block1 = vgg_block1_kernel.vgg_block1_plain
     try:
-        with plain_modules(model.base):
+        with (contextlib.nullcontext() if isinstance(model.base, vgg.VGGBase)
+              else plain_modules(model.base)):
             yield
     finally:
-        faster_rcnn.roi_align_avg = saved
+        faster_rcnn.roi_align_avg, vgg.fused_vgg_block1 = saved
 
 
-def one_train_step(model, batch, seed: int):
+def one_train_step(model, batch, seed: int, backbone: str = "resnet101",
+                   clip_norm: float | None = None):
     """One step from the model's parameters with a fresh optimizer (SGD,
-    base_lr 0.01): (metrics as floats, {trainable name: update})."""
+    base_lr 0.01, `clip_norm`), sampling and dropout from one seeded
+    generator: (metrics as floats, {trainable name: update})."""
     from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
 
-    opt, sched, labels = build_optimizer(model, "resnet101", base_lr=0.01)
+    opt, sched, labels = build_optimizer(model, backbone, base_lr=0.01, clip_norm=clip_norm)
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if labels[n] != "frozen"}
     metrics = make_train_step(model, opt, sched)(
@@ -863,17 +902,22 @@ def one_train_step(model, batch, seed: int):
     return metrics, updates
 
 
-def train_stages(model, batch, seed: int) -> dict:
+def train_stages(model, batch, seed: int, backbone: str = "resnet101",
+                 clip_norm: float | None = None,
+                 names=("base (stem, layer1 kernels, layer2-3 cuDNN)",
+                        "head (roi_align_avg, layer4, classifiers, R-CNN losses)",
+                        "backward (roi_align_avg_bwd kernel, layer2-4, RPN, classifiers)")) -> dict:
     """Where one train step's time goes: the train forward's parts, the
     backward and the optimizer step, host clock around each, each ended by
-    a device sync (so they do not overlap as they do in a step)."""
+    a device sync (so they do not overlap as they do in a step). `names`
+    labels the base, head and backward stages."""
     from rlobjectdetection_tpu_torch.engine import build_optimizer
     from rlobjectdetection_tpu_torch.models.losses import smooth_l1_loss, softmax_cross_entropy
     from rlobjectdetection_tpu_torch.models.targets import (anchor_target, proposal_target,
                                                             uniform_source)
 
     c, t = model.cfg, model.cfg.TRAIN
-    opt, sched, _ = build_optimizer(model, "resnet101", base_lr=0.01)
+    opt, sched, _ = build_optimizer(model, backbone, base_lr=0.01, clip_norm=clip_norm)
     data, info, gt = batch["data"], batch["im_info"], batch["gt_boxes"]
     stages, t0 = {}, 0.0
 
@@ -890,7 +934,7 @@ def train_stages(model, batch, seed: int) -> dict:
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
         base_feat = model.base(data)
-        lap("base (stem, layer1 kernels, layer2-3 cuDNN)")
+        lap(names[0])
         rpn_cls, rpn_delta = model.rpn(base_feat)
         rois = model._propose(rpn_cls, rpn_delta, info, t)[0]
         lap("rpn (head convs, decode, top-12000, NMS to 2000)")
@@ -906,19 +950,19 @@ def train_stages(model, batch, seed: int) -> dict:
         lap("anchor_target + RPN losses")
         pt = proposal_target(uniform, rois, gt, rois_per_image=t.BATCH_SIZE)
         lap("proposal_target (sample 128 rois an image)")
-        cls_score, bbox_pred = model._scores(base_feat, pt.rois)
+        cls_score, bbox_pred = model._scores(base_feat, pt.rois, uniform)
         labels = pt.labels.reshape(-1)
         sel = F.one_hot(labels.long(), model.num_classes).float()
         bbox_pred = torch.einsum("ncd,nc->nd", bbox_pred.reshape(-1, model.num_classes, 4), sel)
         loss = loss + softmax_cross_entropy(cls_score, labels) + smooth_l1_loss(
             bbox_pred, pt.bbox_targets.reshape(-1, 4), pt.bbox_inside_weights.reshape(-1, 4),
             pt.bbox_outside_weights.reshape(-1, 4))
-        lap("head (roi_align_avg, layer4, classifiers, R-CNN losses)")
+        lap(names[1])
         loss.backward()
-        lap("backward (roi_align_avg_bwd kernel, layer2-4, RPN, classifiers)")
+        lap(names[2])
         opt.step()
         sched.step()
-        lap("optimizer step (SGD)")
+        lap("optimizer step (SGD)" + (f", clip {clip_norm}" if clip_norm else ""))
         float(loss.detach())
         lap("copy the loss to the host")
     return stages
@@ -964,18 +1008,31 @@ def roi_align_bwd_check(label, feat_shape, rois, grad, flush) -> dict:
     return r
 
 
-def step_vs_plain(model, batch, state: dict, dtype) -> list[str]:
+def step_vs_plain(model, batch, state: dict, dtype, backbone: str = "resnet101",
+                  clip_norm: float | None = None) -> list[str]:
     """One train step from `state` with the kernels and one with their plain
-    versions (same sampling seed): prints the four losses' relative gaps and
-    the largest update gap of a trainable tensor (relative to its largest
-    update); returns the bounds they break."""
+    versions (same sampling and dropout seed): prints the four losses'
+    relative gaps and the largest update gap of a trainable tensor (relative
+    to its largest update); returns the bounds they break. In f32 a VGG-16
+    plain run takes the kernel run's max-pool routes and ReLU gates
+    (`vgg_ties`), where rounding decides them."""
+    from rlobjectdetection_tpu_torch.models.backbones import vgg, vgg_ties
+
     model.dtype = model.base.dtype = dtype
+    ties, counts = {}, None
+    if dtype == torch.float32 and isinstance(model.base, vgg.VGGBase):
+        counts = {}
+        record = vgg_ties.record(model.base, ties)
+        replay = vgg_ties.replay(model.base, ties, counts)
+    else:
+        record = replay = contextlib.nullcontext()
     with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
         model.load_state_dict(state)
-        got, got_up = one_train_step(model, batch, seed=9)
+        with record:
+            got, got_up = one_train_step(model, batch, 9, backbone, clip_norm)
         model.load_state_dict(state)
-        with plain_train_path(model):
-            want, want_up = one_train_step(model, batch, seed=9)
+        with plain_train_path(model), replay:
+            want, want_up = one_train_step(model, batch, 9, backbone, clip_norm)
     gaps = {k: abs(got[k] - want[k]) / abs(want[k]) for k in
             ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")}
     up_rel, up_leaf = max((((got_up[n] - want_up[n]).abs().max()
@@ -985,8 +1042,16 @@ def step_vs_plain(model, batch, state: dict, dtype) -> list[str]:
           f"relative gaps {gaps} (bound {TRAIN_LOSS_TOL[dtype]:.1e}); fg/bg "
           f"{int(got['fg_cnt'])}/{int(got['bg_cnt'])} vs "
           f"{int(want['fg_cnt'])}/{int(want['bg_cnt'])}; largest update gap "
-          f"{up_rel:.3e} of a leaf's max |update| ({up_leaf})", flush=True)
+          f"{up_rel:.3e} of a leaf's max |update| ({up_leaf})"
+          + (f"; the plain run took the kernel run's routes in {counts['pools']} pools (its "
+             f"own max at most {counts['routed']:.3e} of the layer's largest above the routed "
+             f"value) and its sign at {counts['flipped']} conv outputs (at most "
+             f"{counts['flipped_max']:.3e} of the layer's largest; bound on both "
+             f"{TIE_SIZE_TOL:.0e})" if counts is not None else ""),
+          flush=True)
     failed = []
+    if counts is not None and max(counts["routed"], counts["flipped_max"]) > TIE_SIZE_TOL:
+        failed.append(f"train step f32: a replayed decision was no tie: {counts}")
     if max(gaps.values()) > TRAIN_LOSS_TOL[dtype]:
         failed.append(f"train step {dtype}: loss gaps {gaps} > {TRAIN_LOSS_TOL[dtype]}")
     if dtype == torch.float32 and up_rel > TRAIN_UPDATE_TOL:
@@ -1107,6 +1172,248 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     return results, launches
 
 
+def vgg_train_path(vgg_state: dict) -> tuple[dict, dict]:
+    """VGG-16's train step (blocks 1-2 frozen, fc6/fc7 dropout, clip 10):
+    three bf16 steps at batch 2 with the block-1 and both RoIAlignAvg
+    kernels' launches read over them, one step's stages, the block-1 and
+    RoIAlignAvg forward kernels and the backward kernel at C=512 against
+    their plain versions at the train step's shapes, and one step with the
+    kernels against their plain versions in f32 and in bf16."""
+    from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
+    from rlobjectdetection_tpu_torch.engine.serve import build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops import roi_align_kernel, vgg_block1_kernel
+
+    dev = torch.device("cuda")
+    cfg = build_config("coco", ["DTYPE", "bfloat16"])
+    check(cfg.CONV1_FUSED and cfg.POOLING_MODE == "align" and cfg.TRAIN.BATCH_SIZE == 128,
+          f"vgg16 train config expected, got {cfg}")
+    model = FasterRCNN(NUM_CLASSES, "vgg16", cfg, device=dev, seed=3)
+    model.load_state_dict(vgg_state)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(dev)
+    counters = {"vgg_block1": vgg_block1_kernel.fused_vgg_block1,
+                "roi_align_avg": roi_align_kernel.roi_align_avg,
+                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+    opt, sched, labels = build_optimizer(model, "vgg16", base_lr=0.01, clip_norm=VGG_CLIP)
+    step = make_train_step(model, opt, sched)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    drop = torch.Generator(device=dev).manual_seed(8)
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"model: vgg16 train step, batch {TRAIN_BATCH} x {BLOB_SHAPE[1]}x{BLOB_SHAPE[2]}, "
+          f"{n_train} trained parameters in {sum(v != 'frozen' for v in labels.values())} "
+          f"tensors (blocks 1-2 frozen), fc6/fc7 dropout 0.5, SGD base_lr 0.01, clip "
+          f"{VGG_CLIP}, compute {cfg.DTYPE}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step(batch, gen, drop)
+        loss = float(metrics["loss"])                   # ends in a device sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        parts = {k: float(metrics[k]) for k in ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")}
+        norm = float(opt.grad_norm)
+        check(np.isfinite(loss) and all(np.isfinite(v) for v in parts.values())
+              and np.isfinite(norm), f"vgg16 train step {i}: loss {loss} {parts}, norm {norm}")
+        print(f"vgg16 train step {i}: {step_ms[-1]:.2f} ms, loss {loss:.5f} {parts}, fg_cnt "
+              f"{int(metrics['fg_cnt'])}, bg_cnt {int(metrics['bg_cnt'])}, trainable gradients' "
+              f"global norm before the clip {norm:.5f} "
+              f"({'clipped' if norm > VGG_CLIP else 'not clipped'} at {VGG_CLIP})", flush=True)
+    launches = {k: f.launches for k, f in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"vgg16 train path: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, step ms "
+          f"{[round(v, 3) for v in step_ms]}, peak memory {peak} bytes, launches {launches}",
+          flush=True)
+    check(all(v == TRAIN_STEPS for v in launches.values()),
+          f"vgg16 train: each kernel should launch once a step: {launches}")
+    after = model.state_dict()
+    frozen_moved = [k for k, v in after.items()
+                    if labels.get(k, "frozen") == "frozen" and not torch.equal(v, state0[k])]
+    check(not frozen_moved, f"vgg16 train: frozen tensors changed: {frozen_moved[:4]}")
+    check(all(labels[k] == "frozen" for k in after if k.startswith(("base.conv1_", "base.conv2_"))),
+          "vgg16 train: blocks 1-2 are not frozen")
+    still = [k for k in after if k.startswith(("head.fc6", "head.fc7", "base.conv3_",
+                                               "base.conv4_", "base.conv5_"))
+             and torch.equal(after[k], state0[k])]
+    check(not still, f"vgg16 train: trainable tensors did not move: {still[:4]}")
+    del opt, sched, step
+    with torch.no_grad():
+        steady_rois = model(batch["data"], batch["im_info"], batch["gt_boxes"], train=True,
+                            generator=torch.Generator(device=dev).manual_seed(7),
+                            dropout=torch.Generator(device=dev).manual_seed(8))["rois"]
+    steady_rois = steady_rois.reshape(-1, 5).contiguous()
+
+    model.load_state_dict(state0)
+    stages = train_stages(model, batch, 11, "vgg16", VGG_CLIP, names=(
+        "base (block 1 kernel, blocks 2-5 cuDNN, blocks 1-2 frozen)",
+        "head (roi_align_avg C=512, fc6/fc7 with dropout, classifiers, R-CNN losses)",
+        "backward (roi_align_avg_bwd kernel C=512, fc6/fc7, conv3-5, RPN, classifiers)"))
+    print(f"vgg16 train step stages ms: {stages}", flush=True)
+
+    # the backward kernel at C=512 (two channel chunks a feature row), with
+    # the first step's rois and a steady step's; the forward kernels first
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    model.load_state_dict(state0)
+    with torch.no_grad():
+        feat_shape = tuple(model.base(batch["data"]).shape)
+        rois = model(batch["data"], batch["im_info"], batch["gt_boxes"], train=True,
+                     generator=torch.Generator(device=dev).manual_seed(7),
+                     dropout=torch.Generator(device=dev).manual_seed(8))["rois"]
+    rois = rois.reshape(-1, 5).contiguous()
+    check(feat_shape == (2, 50, 76, 512) and tuple(rois.shape) == (256, 5),
+          f"vgg16 train head inputs {feat_shape} {tuple(rois.shape)}")
+    # block 1 and the RoIAlignAvg forward at the shapes the train step gives
+    # them: the batch-2 image, and the 256 sampled rois on both images'
+    # [2, 50, 76, 512] features
+    base = model.base
+    w = (base.conv1_1.weight, base.conv1_1.bias, base.conv1_2.weight, base.conv1_2.bias)
+    with torch.no_grad():
+        data = batch["data"]
+        for dtype in (torch.bfloat16, torch.float32):
+            with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
+                parity(f"vgg_block1 train {tuple(data.shape)}", dtype,
+                       vgg_block1_kernel.fused_vgg_block1(data, *w, dtype=dtype),
+                       vgg_block1_kernel.vgg_block1_plain(data, *w, dtype=dtype),
+                       VGG_BLOCK1_TOL[dtype])
+        base_feat = base(data)
+        results = {"roi_align_avg C=512 train": roi_align_check(
+            "train R=256 C=512 [2,50,76,512]", base_feat, rois, flush,
+            BF16_TOL["roi_align_avg C=512"])}
+    del base_feat
+    g = torch.Generator(device=dev).manual_seed(5)
+    grad = torch.randn((256, 7, 7, 512), generator=g, device=dev).to(torch.bfloat16)
+    results |= {"roi_align_avg_bwd C=512": roi_align_bwd_check(
+                   "first-step R=256 C=512", feat_shape, rois, grad, flush),
+               "roi_align_avg_bwd C=512 steady": roi_align_bwd_check(
+                   "steady R=256 C=512", feat_shape, steady_rois, grad, flush)}
+    del flush
+
+    # the whole step, kernels against plain versions, from the first step's
+    # parameters and draws (sampling and dropout from one seeded generator)
+    failed = []
+    for dtype in (torch.float32, torch.bfloat16):
+        failed += step_vs_plain(model, batch, state0, dtype, "vgg16", VGG_CLIP)
+    model.dtype = model.base.dtype = torch.bfloat16
+    check(not failed, "; ".join(failed))
+    return results, launches
+
+
+def roi_mode_vs_cpu(label, op, feat: torch.Tensor, rois: torch.Tensor) -> None:
+    """`op(features, rois)` on the card against the same function on a CPU
+    copy, in f32: the output and the features' gradient for a random
+    cotangent, 1e-5 of the largest (the gathers' gradients sum in other
+    orders on the card)."""
+    f = feat.float().detach().requires_grad_(True)
+    out = op(f, rois)
+    ct = torch.randn(out.shape, generator=torch.Generator(device=f.device).manual_seed(3),
+                     device=f.device)
+    out.backward(ct)
+    fc = f.detach().cpu().requires_grad_(True)
+    out_cpu = op(fc, rois.cpu())
+    out_cpu.backward(ct.cpu())
+    check(float(fc.grad.abs().max()) > 0, f"{label}: zero gradient")
+    parity(f"{label} forward (card vs CPU)", torch.float32, out.detach().cpu(), out_cpu.detach(),
+           ROI_MODE_TOL)
+    parity(f"{label} gradient (card vs CPU)", torch.float32, f.grad.cpu(), fc.grad, ROI_MODE_TOL)
+
+
+def roi_modes_path(det_state: dict, images) -> dict:
+    """The flagship with POOLING_MODE pool, then crop (plain PyTorch on the
+    card: XLA in JAX, no TPU kernel): three requests, one request's stages,
+    two train steps (the first samples gt rois only, the second mixed
+    proposals), the op on the card against the CPU at a request's and at
+    the second step's rois, and its times at the request's and the train
+    step's shapes. Returns {mode: times}."""
+    from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_crop, roi_pool, stem_kernel
+
+    dev = torch.device("cuda")
+    ops = {"pool": lambda f, r: roi_pool.roi_pool(f, r, 7, 7, 1.0 / 16.0),
+           "crop": lambda f, r: roi_crop.roi_crop(f, r, 14, 1.0 / 16.0, max_pool=True)}
+    counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1}
+    batch = train_batch(dev)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+    times = {}
+    for mode, op in ops.items():
+        cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16",
+                                    "POOLING_MODE", mode])
+        check(cfg.POOLING_MODE == mode and cfg.CROP_RESIZE_WITH_MAX_POOL and cfg.POOLING_SIZE == 7,
+              f"{mode} config expected, got {cfg}")
+        model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev, seed=3)
+        model.load_state_dict(det_state)
+        detector = Detector(model, cfg, dev)
+        serve_requests(f"{mode} mode", detector, images, counters)
+        data, info = request_stages(f"{mode} mode", detector, images[0], "base (stem, layer1-3)",
+                                    f"head (roi_{mode}, layer4, classifiers)")
+        with torch.no_grad():
+            feat = model.base(data, fwd_only=True)
+            rois = model.proposals(feat, info)[0].reshape(-1, 5).contiguous()
+        roi_mode_vs_cpu(f"roi_{mode} request R={rois.shape[0]}", op, feat, rois)
+        request_ms = time_ms(lambda: op(feat, rois), flush)
+        with torch.no_grad():
+            request_bytes = nbytes(feat, rois, op(feat, rois))
+
+        state0 = {k: v.clone() for k, v in model.state_dict().items()}
+        opt, sched, labels = build_optimizer(model, "resnet101", base_lr=0.01)
+        step = make_train_step(model, opt, sched)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            metrics = step(batch, gen)
+            loss = float(metrics["loss"])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.isfinite(loss), f"{mode} train step {i}: loss {loss}")
+            print(f"{mode} mode train step {i}: {step_ms[-1]:.2f} ms, loss {loss:.5f}, fg_cnt "
+                  f"{int(metrics['fg_cnt'])}, bg_cnt {int(metrics['bg_cnt'])}", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        after = model.state_dict()
+        still = [k for k, v in labels.items() if v != "frozen" and torch.equal(after[k], state0[k])]
+        moved = [k for k, v in labels.items() if v == "frozen" and not torch.equal(after[k],
+                                                                                 state0[k])]
+        check(not still and not moved, f"{mode} train: unmoved {still[:4]}, moved {moved[:4]}")
+        print(f"{mode} mode train path: 2 steps at batch {TRAIN_BATCH}, step ms "
+              f"{[round(v, 3) for v in step_ms]}, peak memory {peak} bytes", flush=True)
+        del opt, sched, step
+        # the rois of a step after the two (mixed proposals), on its features
+        with torch.no_grad():
+            feat = model.base(batch["data"])
+            out = model(batch["data"], batch["im_info"], batch["gt_boxes"], train=True,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+        rois = out["rois"].reshape(-1, 5).contiguous()
+        labels_ = out["rois_label"].reshape(-1)
+        print(f"{mode} mode steady rois: {int((labels_ > 0).sum())} fg, "
+              f"{int((labels_ == 0).sum())} bg", flush=True)
+        # pool's CPU copy takes seconds a chunk of 16 rois: 32 of each image's
+        sub = torch.cat([rois[:32], rois[128:160]]) if mode == "pool" else rois
+        roi_mode_vs_cpu(f"roi_{mode} train R={sub.shape[0]} (steady rois, both images)", op,
+                        feat, sub)
+        feat_g = feat.detach().requires_grad_(True)
+        ct = torch.randn(op(feat, rois).shape, device=dev).to(feat.dtype)
+        # bounds in bytes: each input read once, each output written once
+        times[mode] = dict(
+            request_ms=request_ms, train_fwd_bwd_ms=time_ms(
+                lambda: op(feat_g, rois).backward(ct), flush, reps=5),
+            request_bound_ms=bound(request_bytes, 0, BF16_TENSOR_FLOPS)[0],
+            train_bound_ms=bound(nbytes(feat, rois, ct, ct, feat), 0, BF16_TENSOR_FLOPS)[0])
+        print(f"roi_{mode} (plain PyTorch on the card, bf16): request R=300 on "
+              f"[1,50,76,1024] forward {request_ms:.4f} ms (bound "
+              f"{times[mode]['request_bound_ms']:.4f}, bytes); train R=256 on [2,50,76,1024] "
+              f"forward + backward {times[mode]['train_fwd_bwd_ms']:.4f} ms (bound "
+              f"{times[mode]['train_bound_ms']:.4f}, bytes)", flush=True)
+        del model, detector, feat, feat_g, out, state0
+        torch.cuda.empty_cache()
+    return times
+
+
 def report(name, r, launches, label=None) -> None:
     wrapper = f"wrapper_ms {r['wrapper_ms']:.4f}, " if "wrapper_ms" in r else ""
     print(f"{label or name}: kernel_ms {r['ms']:.4f}, {wrapper}plain_ms {r['plain_ms']:.4f}, "
@@ -1155,7 +1462,7 @@ def main() -> None:
     images = [rng.randint(0, 256, (h, w, 3)).astype(np.float32) for h, w in IMAGE_SIZES]
     results, launches, det_state = flagship(cfg, images)
     torch.cuda.empty_cache()
-    vgg_results, vgg_launches = vgg16(cfg, images)
+    vgg_results, vgg_launches, vgg_state = vgg16(cfg, images)
     torch.cuda.empty_cache()
 
     # 4. the RL refinement net, warm-started from the flagship
@@ -1164,19 +1471,30 @@ def main() -> None:
 
     # 5. the detector's train step, from the flagship's weights
     train_results, train_launches = train_path(det_state)
+    torch.cuda.empty_cache()
 
-    # 6. the kernels line: launches over both detectors' requests, over the
-    # RL path's requests and train steps for the residual stage, and over the
-    # detector's train steps for the RoIAlignAvg backward
-    roi_launches = launches["roi_align_avg"] + vgg_launches["roi_align_avg"]
+    # 6. VGG-16's train step, from the served VGG-16's weights
+    vgg_train_results, vgg_train_launches = vgg_train_path(vgg_state)
+    del vgg_state
+    torch.cuda.empty_cache()
+
+    # 7. the flagship in the pool and crop modes
+    mode_times = roi_modes_path(det_state, images)
+
+    # 8. the kernels line: launches over both detectors' requests, over the
+    # RL path's requests and train steps for the residual stage, and over
+    # both detectors' train steps (block 1, RoIAlignAvg and its backward)
+    roi_launches = (launches["roi_align_avg"] + vgg_launches["roi_align_avg"]
+                    + vgg_train_launches["roi_align_avg"])
     results["vgg_block1"] = vgg_results["vgg_block1"]
     results["res_stage"] = rl_results["res_stage"]
     roi_rl = rl_results.pop("roi_align_avg C=1024 R=64")
     results["roi_align_avg_bwd"] = train_results["roi_align_avg_bwd"]
     bwd_steady = train_results["roi_align_avg_bwd steady"]
-    launches = dict(launches, vgg_block1=vgg_launches["vgg_block1"], roi_align_avg=roi_launches,
-                    res_stage=rl_launches["res_stage"],
-                    roi_align_avg_bwd=train_launches["roi_align_avg_bwd"])
+    launches = dict(launches, roi_align_avg=roi_launches, res_stage=rl_launches["res_stage"],
+                    vgg_block1=vgg_launches["vgg_block1"] + vgg_train_launches["vgg_block1"],
+                    roi_align_avg_bwd=(train_launches["roi_align_avg_bwd"]
+                                       + vgg_train_launches["roi_align_avg_bwd"]))
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
                "layer1": ("csrc/layer1.cu", "rlobjectdetection_tpu/ops/layer1_pallas.py:317"),
                "roi_align_avg": ("csrc/roi_align.cu",
@@ -1187,9 +1505,11 @@ def main() -> None:
                              "rlobjectdetection_tpu/ops/res_stage_pallas.py:284"),
                "roi_align_avg_bwd": ("csrc/roi_align.cu",
                                      "rlobjectdetection_tpu/ops/roi_align_vjp.py:39 (XLA)")}
-    where = {"roi_align_avg": "in 6 requests",
+    where = {"roi_align_avg": f"in 6 requests and {TRAIN_STEPS} vgg16 train steps",
+             "vgg_block1": f"in 3 vgg16 requests and {TRAIN_STEPS} vgg16 train steps",
              "res_stage": "in 3 RL requests and 3 RL train steps (layer2 + layer3)",
-             "roi_align_avg_bwd": f"in {TRAIN_STEPS} detector train steps"}
+             "roi_align_avg_bwd": f"in {TRAIN_STEPS} resnet101 and {TRAIN_STEPS} vgg16 "
+                                  f"train steps"}
     kernels = []
     for name, r in results.items():
         report(name, r, f"{launches[name]} {where.get(name, 'in 3 requests')}",
@@ -1204,9 +1524,14 @@ def main() -> None:
            f"{vgg_launches['roi_align_avg']} in the 3 vgg16 requests", "roi_align_avg C=512")
     report("roi_align_avg", roi_rl, f"{rl_launches['roi_align_avg']} in the RL requests and "
            f"train steps", "roi_align_avg C=1024 R=64")
-    report("roi_align_avg_bwd", bwd_steady, f"{launches['roi_align_avg_bwd']} in "
-           f"{TRAIN_STEPS} detector train steps", "roi_align_avg_bwd steady rois")
-    print(f"detector train path launches over {TRAIN_STEPS} steps: {train_launches}", flush=True)
+    report("roi_align_avg_bwd", bwd_steady, f"{train_launches['roi_align_avg_bwd']} in "
+           f"{TRAIN_STEPS} resnet101 train steps", "roi_align_avg_bwd steady rois")
+    for label, r in vgg_train_results.items():
+        name = label.split()[0]
+        report(name, r, f"{vgg_train_launches[name]} in {TRAIN_STEPS} vgg16 train steps", label)
+    print(f"detector train path launches over {TRAIN_STEPS} steps: {train_launches}; vgg16 "
+          f"train path: {vgg_train_launches}", flush=True)
+    print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

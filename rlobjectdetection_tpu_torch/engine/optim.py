@@ -90,18 +90,21 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
 
 class SGD(torch.optim.SGD):
     """`torch.optim.SGD` that first clips the gradients of all its
-    parameters by their global norm when `clip_norm` is set."""
+    parameters (the trainable ones: `build_optimizer` leaves the frozen out)
+    by their global norm when `clip_norm` is set, and keeps that norm before
+    the clip as `grad_norm` (a device tensor)."""
 
     def __init__(self, groups, lr: float, momentum: float, clip_norm: float | None = None):
         super().__init__(groups, lr=lr, momentum=momentum)
         self.clip_norm = clip_norm
+        self.grad_norm = None
 
     @torch.no_grad()
     def step(self, closure=None):
         if self.clip_norm is not None:
             grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
             if grads:
-                clip_by_global_norm_(grads, self.clip_norm)
+                self.grad_norm = clip_by_global_norm_(grads, self.clip_norm)
         return super().step(closure)
 
 

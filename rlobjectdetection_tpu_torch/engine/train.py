@@ -5,9 +5,15 @@
     step = make_train_step(model, opt, sched)
     metrics = step(batch, torch.Generator(device="cuda").manual_seed(7))
 
+    # VGG-16, as the reference trains it: clip the global norm at 10
+    opt, sched, _ = build_optimizer(model, "vgg16", base_lr=0.01, clip_norm=10.0)
+
 One step: zero the gradients, the train forward (proposals, target
-sampling from `generator`, the four losses), backward of their sum, the
-optimizer and scheduler steps.
+sampling from `generator`, VGG-16's head dropout, the four losses),
+backward of their sum, the optimizer (with its clip, over the trainable
+gradients only) and scheduler steps. The dropout draws from the optional
+`dropout` source of a step, and by default from `generator` itself, after
+the step's sampling draws (the JAX step splits one key in two instead).
 """
 
 from __future__ import annotations
@@ -18,18 +24,19 @@ from ..utils.guards import skip_nonfinite_step
 
 
 def make_train_step(model, opt, sched, skip_nonfinite: bool = False):
-    """Returns `train_step(batch, generator) → metrics`. batch: {data
-    `[B, H, W, 3]`, im_info `[B, 3]`, gt_boxes `[B, G, 5]`, num_boxes `[B]`}
-    on the model's device; generator: a torch.Generator on that device (or a
-    `models.targets.Uniform` source). Metrics are detached device tensors:
+    """Returns `train_step(batch, generator, dropout=None) → metrics`.
+    batch: {data `[B, H, W, 3]`, im_info `[B, 3]`, gt_boxes `[B, G, 5]`,
+    num_boxes `[B]`} on the model's device; generator, and dropout where
+    given: a torch.Generator on that device (or a `models.targets.Uniform`
+    source). Metrics are detached device tensors:
     loss (the four-term sum), rpn_cls, rpn_box, rcnn_cls, rcnn_box, fg_cnt,
     bg_cnt, and with `skip_nonfinite` `skipped` (1.0 where a non-finite
     gradient left the parameters, momentum and schedule as they were)."""
 
-    def train_step(batch: dict, generator) -> dict:
+    def train_step(batch: dict, generator, dropout=None) -> dict:
         opt.zero_grad(set_to_none=True)
         out = model(batch["data"], batch["im_info"], batch["gt_boxes"], batch.get("num_boxes"),
-                    train=True, generator=generator)
+                    train=True, generator=generator, dropout=dropout)
         loss = (out["rpn_loss_cls"] + out["rpn_loss_box"]
                 + out["rcnn_loss_cls"] + out["rcnn_loss_bbox"])
         loss.backward()

@@ -2,20 +2,20 @@
 `rlobjectdetection_tpu/models/faster_rcnn.py`).
 
 backbone → RPN → proposal layer → (train: proposal-target sampling) →
-RoIAlignAvg → head (ResNet layer4, or VGG-16 fc6/fc7) → class probabilities
-+ per-class box regression (train: the group of each roi's label) → (train:
-the RPN and R-CNN cross-entropy and smooth-L1 losses). Parameters are f32;
-compute runs in cfg.DTYPE. Module and parameter names follow the JAX param
+RoI features (POOLING_MODE: `align`, RoIAlignAvg on its CUDA kernels;
+`pool`, quantized max pool; `crop`, bilinear crop and a 2×2 max) → head
+(ResNet layer4, or VGG-16 fc6/fc7 with dropout in train) → class
+probabilities + per-class box regression (train: the group of each roi's
+label) → (train: the RPN and R-CNN cross-entropy and smooth-L1 losses).
+Parameters are f32; compute runs in cfg.DTYPE. Module and parameter names follow the JAX param
 tree (`base/layer1/block0/conv1/kernel` is `base.layer1.block0.conv1.weight`,
 `head/fc6/kernel` is `head.fc6.weight`), which is what
 `engine/checkpoint.py` maps.
 
-The frozen backbone stages (RESNET.FIXED_BLOCKS) take no gradient; every
-other parameter requires grad, and the eval forward runs under
-`torch.no_grad()`. The port serves the ResNet and VGG-16 backbones and
-trains the ResNet ones, with POOLING_MODE "align". VGG-16 training and the
-pool / crop modes are later slices (ROADMAP.md §1), and asking for them
-raises.
+The frozen backbone prefix (ResNet: conv1 and RESNET.FIXED_BLOCKS stages;
+VGG-16: conv blocks 1-2) takes no gradient; every other parameter requires
+grad, and the eval forward runs under `torch.no_grad()`. Every backbone
+serves and trains in every POOLING_MODE.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ from torch import nn
 from ..config import Config
 from ..device import compute_dtype, resolve_device
 from ..ops.roi_align_kernel import roi_align_avg
+from ..ops.roi_crop import roi_crop
+from ..ops.roi_pool import roi_pool
 from .backbones.resnet import Conv2d, Dense, ResNetBase, ResNetHead
 from .backbones.vgg import VGGBase, VGGHead
 from .losses import smooth_l1_loss, softmax_cross_entropy
@@ -45,10 +47,6 @@ class FasterRCNN(nn.Module):
                  device: str | torch.device = "cuda", seed: int = 3):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.POOLING_MODE != "align":
-            raise NotImplementedError(
-                f"POOLING_MODE {cfg.POOLING_MODE!r}: only 'align' is ported so "
-                f"far; pool and crop are ROADMAP.md §1 item 12")
         self.num_classes = num_classes
         self.class_agnostic = class_agnostic
         self.cfg = cfg
@@ -91,16 +89,37 @@ class FasterRCNN(nn.Module):
             post_nms_top_n=phase.RPN_POST_NMS_TOP_N, nms_thresh=phase.RPN_NMS_THRESH,
             nms_tile=c.NMS_TILE)
 
-    def _scores(self, base_feat: torch.Tensor, rois: torch.Tensor):
-        """RoIAlignAvg + head + classifiers for rois `[B, R, 5]`: (cls_score
-        `[B·R, C]` f32, bbox_pred `[B·R, 4C]` f32)."""
-        pooled = roi_align_avg(base_feat.contiguous(), rois.reshape(-1, 5).contiguous(),
-                               self.cfg.POOLING_SIZE, 1.0 / 16.0).to(self.dtype)
-        feat = self.head(pooled)                           # [B*R, 2048 | 4096]
+    def extract_roi_features(self, base_feat: torch.Tensor,
+                             rois_flat: torch.Tensor) -> torch.Tensor:
+        """The POOLING_MODE dispatch for rois `[N, 5]`: `[N, P, P, C]` in the
+        compute dtype."""
+        c = self.cfg
+        base_feat, rois_flat = base_feat.contiguous(), rois_flat.contiguous()
+        if c.POOLING_MODE == "align":
+            pooled = roi_align_avg(base_feat, rois_flat, c.POOLING_SIZE, 1.0 / 16.0)
+        elif c.POOLING_MODE == "pool":
+            pooled = roi_pool(base_feat, rois_flat, c.POOLING_SIZE, c.POOLING_SIZE, 1.0 / 16.0)
+        elif c.POOLING_MODE == "crop":
+            grid = c.POOLING_SIZE * 2 if c.CROP_RESIZE_WITH_MAX_POOL else c.POOLING_SIZE
+            pooled = roi_crop(base_feat, rois_flat, grid, 1.0 / 16.0,
+                              max_pool=c.CROP_RESIZE_WITH_MAX_POOL)
+        else:
+            raise ValueError(f"unknown POOLING_MODE {c.POOLING_MODE!r}")
+        return pooled.to(self.dtype)
+
+    def _scores(self, base_feat: torch.Tensor, rois: torch.Tensor, dropout=None):
+        """RoI features + head + classifiers for rois `[B, R, 5]`: (cls_score
+        `[B·R, C]` f32, bbox_pred `[B·R, 4C]` f32). `dropout` (a uniform
+        source) puts the VGG head in train; the ResNet head has none."""
+        pooled = self.extract_roi_features(base_feat, rois.reshape(-1, 5))
+        if isinstance(self.head, VGGHead):
+            feat = self.head(pooled, train=dropout is not None, dropout=dropout)
+        else:
+            feat = self.head(pooled)                       # [B*R, 2048 | 4096]
         return self.RCNN_cls_score(feat).float(), self.RCNN_bbox_pred(feat).float()
 
     def detect_head(self, base_feat: torch.Tensor, rois: torch.Tensor):
-        """RoIAlignAvg + head + classifiers for rois `[B, R, 5]`: (cls_prob
+        """RoI features + head + classifiers for rois `[B, R, 5]`: (cls_prob
         `[B, R, C]` f32 softmax, bbox_pred `[B, R, 4C]` f32)."""
         b, r = rois.shape[:2]
         cls_score, bbox_pred = self._scores(base_feat, rois)
@@ -108,15 +127,18 @@ class FasterRCNN(nn.Module):
         return cls_prob.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)
 
     def forward(self, im_data: torch.Tensor, im_info: torch.Tensor, gt_boxes=None,
-                num_boxes=None, *, train: bool = False, generator=None):
+                num_boxes=None, *, train: bool = False, generator=None, dropout=None):
         """im_data `[B, H, W, 3]` (BGR, pixel means subtracted); im_info
         `[B, 3]` (h, w, scale). Eval (no gradient) returns {rois, roi_valid,
         cls_prob, bbox_pred}. Train takes gt_boxes `[B, G, 5]` (x1, y1, x2,
         y2, cls; zero rows pad) and `generator` (a torch.Generator on the
         model's device, or a `targets.Uniform` source) for the sampling, and
         returns also the four losses and rois_label `[B, R]`, with rois the
-        sampled ones and bbox_pred each roi's label group. num_boxes is
-        unused (the zero rows mark the padding), as in the JAX model."""
+        sampled ones and bbox_pred each roi's label group. The VGG head's
+        dropout draws from `dropout` (a Generator or a source), by default
+        from `generator` itself, after the sampling draws; the ResNet head
+        draws none. num_boxes is unused (the zero rows mark the padding), as
+        in the JAX model."""
         if not train:
             # eval takes no gradient, so the frozen-stage kernels
             # (STAGE_FUSED) engage whatever FIXED_BLOCKS says, as in the JAX
@@ -127,10 +149,6 @@ class FasterRCNN(nn.Module):
                 rois, _, roi_valid = self.proposals(base_feat, im_info)
                 cls_prob, bbox_pred = self.detect_head(base_feat, rois)
             return dict(rois=rois, roi_valid=roi_valid, cls_prob=cls_prob, bbox_pred=bbox_pred)
-        if not isinstance(self.base, ResNetBase):
-            raise NotImplementedError(
-                "VGG-16 training (fc6/fc7 dropout, the frozen blocks 1-2, clip 10) is a later "
-                "slice, ROADMAP.md §1 item 20")
         if self.cfg.TRAIN.RPN_POSITIVE_WEIGHT >= 0:
             # only the uniform branch exists: the reference's non-uniform one
             # is broken upstream, so a setting that asks for it is refused
@@ -138,10 +156,11 @@ class FasterRCNN(nn.Module):
                              "not implemented")
         if gt_boxes is None or generator is None:
             raise ValueError("the train forward needs gt_boxes and a generator")
-        return self._train_forward(im_data, im_info, gt_boxes,
-                                   uniform_source(generator, im_data.device))
+        sampling = uniform_source(generator, im_data.device)
+        drop = sampling if dropout is None else uniform_source(dropout, im_data.device)
+        return self._train_forward(im_data, im_info, gt_boxes, sampling, drop)
 
-    def _train_forward(self, im_data, im_info, gt_boxes, uniform):
+    def _train_forward(self, im_data, im_info, gt_boxes, uniform, dropout):
         c, t = self.cfg, self.cfg.TRAIN
         b, a = im_data.shape[0], self.num_anchors
         base_feat = self.base(im_data)
@@ -170,7 +189,7 @@ class FasterRCNN(nn.Module):
             bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS,
             normalize_targets=t.BBOX_NORMALIZE_TARGETS_PRECOMPUTED)
         r = pt.rois.shape[1]
-        cls_score, bbox_pred = self._scores(base_feat, pt.rois)
+        cls_score, bbox_pred = self._scores(base_feat, pt.rois, dropout)
         labels = pt.labels.reshape(-1)
         if not self.class_agnostic:
             # each roi's regression group, picked by its label (one-hot, as

@@ -4,7 +4,8 @@ Port of `rlobjectdetection_tpu/ops/roi_align.py:26-104`. This flavour is not
 Detectron's 4-sample align: each cell takes ONE bilinear sample at
 (p·bin_h + y1, q·bin_w + x1) with bin sizes over (A-1), corner starts clamped
 to H-2 / W-2, and cells whose sample falls outside [0, H) × [0, W) set to 0.
-RoIAlignAvg runs align at (P+1)² then a stride-1 2×2 mean.
+RoIAlignAvg runs align at (P+1)² then a stride-1 2×2 mean, RoIAlignMax a
+2×2 max.
 
 Features are NHWC, so each of the four corner fetches is a gather of whole
 C-rows. This module holds the plain versions the CUDA kernels
@@ -78,6 +79,16 @@ def roi_align_avg(features: torch.Tensor, rois: torch.Tensor, pooled_size: int =
     """RoIAlignAvg: (P+1)² align then stride-1 2×2 mean → `[R, P, P, C]`."""
     x = roi_align(features, rois, pooled_size + 1, pooled_size + 1, spatial_scale)
     return 0.25 * (x[:, :-1, :-1] + x[:, :-1, 1:] + x[:, 1:, :-1] + x[:, 1:, 1:])
+
+
+def roi_align_max(features: torch.Tensor, rois: torch.Tensor, pooled_size: int = 7,
+                  spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
+    """RoIAlignMax: (P+1)² align then stride-1 2×2 max → `[R, P, P, C]`, as
+    nested maxima in the JAX order. `torch.maximum` splits a tie's gradient
+    in halves, as `jnp.maximum` does. The detector does not call it."""
+    x = roi_align(features, rois, pooled_size + 1, pooled_size + 1, spatial_scale)
+    return torch.maximum(torch.maximum(x[:, :-1, :-1], x[:, :-1, 1:]),
+                         torch.maximum(x[:, 1:, :-1], x[:, 1:, 1:]))
 
 
 def roi_align_avg_backward(grad: torch.Tensor, rois: torch.Tensor, feat_shape,

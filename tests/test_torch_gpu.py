@@ -417,6 +417,7 @@ def _check_bwd_kernel(grad, rois, shape, dtype):
 @pytest.mark.parametrize("n_images,h,w,c,r", [
     (2, 50, 76, 1024, 256),    # the flagship's train step: 2 x 128 rois
     (1, 50, 76, 512, 300),     # VGG-16's channels
+    (2, 50, 76, 512, 256),     # VGG-16's train step: two channel chunks a feature row
     (2, 9, 11, 64, 7),         # small, rois mostly over the border
     (2, 13, 17, 36, 40),       # C not a multiple of 8, one partial channel chunk
     (1, 50, 76, 1024, 0),      # no rois: zeros
@@ -530,3 +531,87 @@ def test_train_step_bf16_on_the_card(cuda):
     after = model.state_dict()
     for k, v in after.items():
         assert torch.equal(v, before[k]) == (labels.get(k, "frozen") == "frozen"), k
+
+
+@pytest.mark.gpu
+def test_vgg16_train_step_kernels_vs_plain_on_the_card(cuda):
+    """One f32 VGG-16 step at 256x320, batch 2 (blocks 1-2 frozen, dropout,
+    clip 10) with the block-1 and both RoIAlignAvg kernels against the same
+    step with their plain versions, from the same parameters and draws: the
+    losses 1e-4, each trainable update 1e-3 of its largest, the frozen
+    blocks untouched. The plain run takes the kernel run's max-pool routes
+    and ReLU gates where rounding decides them (`vgg_ties`: see
+    tests/test_torch_vgg_train.py)."""
+    from rlobjectdetection_tpu_torch.config import Config, TrainConfig
+    from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
+    from rlobjectdetection_tpu_torch.models import FasterRCNN, faster_rcnn
+    from rlobjectdetection_tpu_torch.models.backbones import vgg, vgg_ties
+
+    cfg = Config(TRAIN=TrainConfig(RPN_PRE_NMS_TOP_N=2000, RPN_POST_NMS_TOP_N=256),
+                 ANCHOR_SCALES=(4, 8, 16, 32), CONV1_FUSED=True, DTYPE="float32")
+    model = FasterRCNN(21, "vgg16", cfg, device=cuda, seed=4)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(7)
+    gt = np.zeros((2, 10, 5), np.float32)
+    gt[:, :3, :2] = rng.rand(2, 3, 2) * 200
+    gt[:, :3, 2:4] = gt[:, :3, :2] + 30 + rng.rand(2, 3, 2) * 80
+    gt[:, :3, 4] = rng.randint(1, 21, (2, 3))
+    batch = {"data": torch.from_numpy(rng.randn(2, 256, 320, 3).astype(np.float32) * 10),
+             "im_info": torch.tensor([[256.0, 320.0, 1.0]] * 2), "gt_boxes": torch.from_numpy(gt)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    counters = (vgg_block1_kernel.fused_vgg_block1, roi_align_kernel.roi_align_avg,
+                roi_align_kernel.roi_align_avg_bwd)
+
+    def step():
+        model.load_state_dict(state)
+        opt, sched, labels = build_optimizer(model, "vgg16", base_lr=0.01, clip_norm=10.0)
+        metrics = make_train_step(model, opt, sched)(
+            batch, torch.Generator(device=cuda).manual_seed(1),
+            torch.Generator(device=cuda).manual_seed(2))
+        after = model.state_dict()
+        return ({k: float(metrics[k]) for k in ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")},
+                {k: after[k] - state[k] for k, v in labels.items() if v != "frozen"}, labels)
+
+    n0 = [f.launches for f in counters]
+    ties, counts = {}, {}
+    with vgg_ties.record(model.base, ties):
+        got, got_up, labels = step()
+    assert [f.launches for f in counters] == [n + 1 for n in n0]
+    assert all(torch.equal(model.state_dict()[k], state[k]) for k in state
+               if labels.get(k, "frozen") == "frozen")
+    with pytest.MonkeyPatch.context() as mp, vgg_ties.replay(model.base, ties, counts):
+        mp.setattr(faster_rcnn, "roi_align_avg", roi_align.roi_align_avg)
+        mp.setattr(vgg, "fused_vgg_block1", vgg_block1_kernel.vgg_block1_plain)
+        want, want_up, _ = step()
+    assert [f.launches for f in counters] == [n + 1 for n in n0] and counts["pools"] == 3
+    # every decision taken was a tie (chip_smoke.py's TIE_SIZE_TOL)
+    assert counts["routed"] < 1e-5 and counts["flipped_max"] < 1e-5, counts
+    for k, v in want.items():
+        assert np.isfinite(v) and abs(got[k] - v) <= 1e-4 * abs(v), (k, got[k], v)
+    for k, up in want_up.items():
+        assert float(up.abs().max()) > 0 and max_rel(got_up[k], up) <= 1e-3, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["pool", "crop"])
+def test_roi_modes_on_the_card_match_the_cpu(cuda, mode):
+    """roi_pool / roi_crop (plain PyTorch) on the card against the same
+    function on the CPU in f32, output and gradient 1e-5: integer division,
+    the gathers and the gradients' sums on CUDA."""
+    from rlobjectdetection_tpu_torch.ops import roi_crop, roi_pool
+
+    op = {"pool": lambda f, r: roi_pool.roi_pool(f, r, 7, 7, 1.0 / 16.0),
+          "crop": lambda f, r: roi_crop.roi_crop(f, r, 14, 1.0 / 16.0)}[mode]
+    rng = np.random.RandomState(12)
+    feats = np.maximum(rng.randn(2, 20, 30, 64), 0).astype(np.float32)
+    rois = torch.from_numpy(_rois(rng, 40, 2, 320, 480))
+    ct = torch.from_numpy(rng.randn(40, 7, 7, 64).astype(np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        f = torch.from_numpy(feats).to(dev).requires_grad_(True)
+        out = op(f, rois.to(dev))
+        out.backward(ct.to(dev))
+        grads.append((out.detach().cpu(), f.grad.cpu()))
+    (out, grad), (want_out, want_grad) = grads
+    assert float(want_grad.abs().max()) > 0
+    assert max_rel(out, want_out) <= 1e-5 and max_rel(grad, want_grad) <= 1e-5

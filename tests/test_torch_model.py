@@ -289,11 +289,15 @@ def test_resnet_train_forward_returns_the_four_losses(models, jax_forward):
 
 
 def test_unported_modes_raise_with_a_roadmap_pointer(models):
-    # VGG-16 serves but does not train yet (a small pooled size keeps fc6
-    # small)
-    vgg = FasterRCNN(NUM_CLASSES, "vgg16", Config(DTYPE="float32", POOLING_SIZE=2),
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vgg(torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]]), train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FasterRCNN(NUM_CLASSES, "resnet50", Config(POOLING_MODE="crop"), device="cpu")
+    """The model surface is whole: VGG-16 trains and every POOLING_MODE the
+    JAX model takes runs (tests/test_torch_vgg_train.py,
+    tests/test_torch_roi_modes.py). What stays refused is what the JAX
+    model refuses: an unknown POOLING_MODE raises ValueError when the head
+    pools, and a train forward without its sampling source."""
+    _, _, model, _ = models
+    x, info = torch.zeros(1, 64, 64, 3), torch.tensor([[64.0, 64.0, 1.0]])
+    bad = FasterRCNN(NUM_CLASSES, "resnet50", Config(POOLING_MODE="roi_warp"), device="cpu")
+    with pytest.raises(ValueError, match="unknown POOLING_MODE 'roi_warp'"):
+        bad(x, info)
+    with pytest.raises(ValueError, match="gt_boxes and a generator"):
+        model(x, info, torch.zeros(1, 2, 5), train=True)
