@@ -26,6 +26,27 @@ a second time with its layer2/layer3 on the residual-stage kernel
 (`stages_fused = 23`, the detector's eval path; served with
 `STAGE_FUSED=0`), and that base is held against the plain modules too.
 
+Between the two detectors, the eval path: `engine/test_net.py`'s eval
+loop, called as a function, with the flagship's weights over a synthetic
+COCO split made in a temporary directory under `output/` (8 images of
+480×640, 80 categories; 800×1088 blobs), once at batch 1 (over
+`device_prefetch`) and once at batch 2 (shape buckets), the stem's,
+layer1's and RoIAlignAvg's launch counts set to 0 before each run and read
+after. Check 1: each image's detections equal `Detector.detect` on the same
+file, to the bit. Check 2, on what each run produced itself (kept by the
+loop's `on_batch` hook): every image in one row, a batch-2 row holding its
+image's batch-1 blob bits and im_info, each image's detections those of its
+row's own outputs, all exactly; batch 2's base features, and the head run
+on each image's batch-1 features with the batch-2 row's own rois against
+that row's outputs, held to the bf16 bound of one backbone computed two
+ways; and how many detection sets differ. Check 3: the gt as detections
+scores AP 1.0 through the port's COCOeval, with neither cv2 nor pycocotools
+loaded. It prints the loop's rates, one image's stages and the scoring
+time, then holds the stem, layer1, the whole base and RoIAlignAvg against
+their plain versions at the loop's shapes (1×800×1088 and 2×800×1088
+blobs, 300 and 600 rois); the kernels line reports each kernel's largest
+error over the requests' and the loop's shapes.
+
 Then the RL box-refinement net (ResNet-101 trunk warm-started from the
 flagship, 56 actions, f32 params, bf16 compute, stem, layer1 and fused
 layer2/layer3 kernels): three refine requests of one 800×1216 image and 64
@@ -65,7 +86,8 @@ the op's times at the request's and the train step's shapes.
 Every phase raises on failure and the script exits non-zero: no CUDA, a
 kernel that does not build or launch, a kernel that disagrees with its plain
 version, a request that gives a wrong shape, non-finite values, no valid
-detection, a train step whose loss is not finite, that moves the frozen
+detection, an eval loop whose detections leave `Detector.detect`'s, whose
+rows are not their images' or whose gt does not score AP 1.0, a train step whose loss is not finite, that moves the frozen
 trunk or leaves the head unchanged, a whole train step whose losses or
 updates leave their bounds, a pool or crop result on the card that leaves
 the CPU's, or a kernel the path did not launch. The
@@ -176,6 +198,15 @@ TRAIN_UPDATE_TOL = 1e-3
 # output and 0, within 1e-5 of the layer's largest magnitude (f32 block-1
 # outputs differ by 9.3e-7 of their largest between the two paths).
 TIE_SIZE_TOL = 1e-5
+# The eval loop at batch 2: each row's class probabilities and deltas against
+# the head run on its image's batch-1 features with that row's own rois,
+# max |diff| / max |batch 1|. cuDNN's batch-2 algorithms move the base
+# features by bf16 steps (1.72e-2, under BASE_FEAT_TOL), which layer4 and
+# the softmax carry on: measured 3.81e-2 (probabilities) and 1.23e-2
+# (deltas) on an H100 (700 W), so the bound is 5e-2. The same head on
+# another image's features measured 0.138 and 0.082 at least: a row handed
+# to the wrong image lies outside the bound, and the check holds that it does.
+EVAL_HEAD_TOL = 5e-2
 VGG_CLIP = 10.0    # the reference's global-norm clip for VGG-16
 # roi_pool / roi_crop (plain PyTorch) on the card against the CPU in f32:
 # the same formulas; the gathers' gradients sum in other orders on the card.
@@ -286,6 +317,24 @@ def randomize_frozen_bn(model: torch.nn.Module, seed: int) -> None:
             buf.copy_(torch.from_numpy(v.astype(np.float32)))
 
 
+class Laps:
+    """Where a pass's time goes: the host clock around each stage, each
+    ended by a device sync (so stages do not overlap as they do in a run).
+    `start()` begins a pass; `lap(name)` ends a stage; a later pass's
+    stages replace the earlier ones'."""
+
+    def __init__(self):
+        self.stages, self.t = {}, 0.0
+
+    def start(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, name):
+        torch.cuda.synchronize()
+        self.stages[name] = round((time.perf_counter() - self.t) * 1e3, 3)
+        self.t = time.perf_counter()
+
+
 def serve_requests(label: str, detector, images, counters: dict) -> dict:
     """Serve each image through `detector.detect` with every launch count
     set to 0 just before; check each request's detections and that every
@@ -331,17 +380,10 @@ def request_stages(label: str, detector, image, base_stage: str, head_stage: str
     from rlobjectdetection_tpu_torch.models.backbones.resnet import ResNetBase
 
     model, cfg, dev = detector.model, detector.cfg, detector.device
-    stages, t = {}, 0.0
-
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        stages[name] = round((time.perf_counter() - t) * 1e3, 3)
-        t = time.perf_counter()
-
+    lap = Laps()
     with torch.no_grad():
         for _ in range(2):                      # the second pass is the one kept
-            t = time.perf_counter()
+            lap.start()
             blob, im_info = detector.blob(image)
             data = torch.from_numpy(blob).to(dev)
             info = torch.from_numpy(im_info).to(dev)
@@ -361,7 +403,7 @@ def request_stages(label: str, detector, image, base_stage: str, head_stage: str
             for d in dets:
                 d.cpu()
             lap("copy detections to the host")
-    print(f"{label} request stages ms: {stages}", flush=True)
+    print(f"{label} request stages ms: {lap.stages}", flush=True)
     return data, info
 
 
@@ -442,6 +484,35 @@ def kernels_vs_plain(label, fn, holders, tols) -> None:
         h.dtype = torch.bfloat16
 
 
+def stem_layer1_parity(label, base, data):
+    """The stem kernel on `data` and layer1's on the stem's output, each
+    against its plain version in bf16 and in f32. Returns the bf16 (max abs,
+    max rel) of each, the stem's weights, the bf16 stem and layer1 outputs
+    and layer1's bf16 packed weights."""
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, stem_kernel
+
+    bn, bf16, f32 = base.bn1, torch.bfloat16, torch.float32
+    stem_w = (base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var)
+    errs = {}
+    stem_bf = stem_kernel.fused_stem(data, *stem_w, dtype=bf16)
+    errs["stem"] = parity(f"stem{label}", bf16, stem_bf,
+                          stem_kernel.stem_plain(data, *stem_w, dtype=bf16), BF16_TOL["stem"])
+    with full_f32():
+        stem_f32 = stem_kernel.fused_stem(data, *stem_w, dtype=f32)
+        parity(f"stem{label}", f32, stem_f32, stem_kernel.stem_plain(data, *stem_w, dtype=f32),
+               F32_TOL)
+    packed_bf = layer1_kernel.pack_layer1(base.layer1, bf16)
+    l1_bf = layer1_kernel.fused_layer1(stem_bf, base.layer1, dtype=bf16)
+    errs["layer1"] = parity(f"layer1{label}", bf16, l1_bf,
+                            layer1_kernel.layer1_plain(stem_bf, packed_bf, bf16),
+                            BF16_TOL["layer1"])
+    with full_f32():
+        l1_f32 = layer1_kernel.fused_layer1(stem_f32, base.layer1, dtype=f32)
+        parity(f"layer1{label}", f32, l1_f32, layer1_kernel.layer1_plain(
+            stem_f32, layer1_kernel.pack_layer1(base.layer1, f32), f32), F32_TOL)
+    return errs, stem_w, stem_bf, l1_bf, packed_bf
+
+
 def base_check(label, base, data, tols) -> None:
     """The whole backbone with its kernels against the plain modules."""
     kernels_vs_plain(f"base_feat ({label})", lambda: base(data), [base], tols)
@@ -481,19 +552,14 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
 
     # each kernel against its plain version at the shapes the requests gave it
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    base, bn = model.base, model.base.bn1
-    stem_w = (base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var)
-    bf16, f32 = torch.bfloat16, torch.float32
+    base = model.base
+    bf16 = torch.bfloat16
     results = {}
     with torch.no_grad():
-        # stem: [1, 800, 1216, 3] f32 image -> [1, 200, 304, 64]
-        stem_bf = stem_kernel.fused_stem(data, *stem_w, dtype=bf16)
-        err = parity("stem", bf16, stem_bf, stem_kernel.stem_plain(data, *stem_w, dtype=bf16),
-                     BF16_TOL["stem"])
-        with full_f32():
-            stem_f32 = stem_kernel.fused_stem(data, *stem_w, dtype=f32)
-            parity("stem", f32, stem_f32, stem_kernel.stem_plain(data, *stem_w, dtype=f32),
-                   F32_TOL)
+        # stem: [1, 800, 1216, 3] f32 image -> [1, 200, 304, 64]; layer1, fed
+        # the stem's output: [1, 200, 304, 64] -> [1, 200, 304, 256]
+        errs, stem_w, stem_bf, l1_bf, packed_bf = stem_layer1_parity("", base, data)
+        err = errs["stem"]
         mul, add = (v.to(bf16)[:, None, None] for v in bn_mul_add(*stem_w[1:]))
         w_bf = base.conv1.weight.to(bf16)
         oh, ow = stem_kernel.stem_out_shapes(*BLOB_SHAPE[1:3])[:2]
@@ -511,15 +577,7 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
                 flush),
             bound_ms=b_stem, bound_by=f_stem)
 
-        # layer1, fed the stem's output: [1, 200, 304, 64] -> [1, 200, 304, 256]
-        packed_bf = layer1_kernel.pack_layer1(base.layer1, bf16)
-        l1_bf = layer1_kernel.fused_layer1(stem_bf, base.layer1, dtype=bf16)
-        err = parity("layer1", bf16, l1_bf, layer1_kernel.layer1_plain(stem_bf, packed_bf, bf16),
-                     BF16_TOL["layer1"])
-        with full_f32():
-            l1_f32 = layer1_kernel.fused_layer1(stem_f32, base.layer1, dtype=f32)
-            parity("layer1", f32, l1_f32, layer1_kernel.layer1_plain(
-                stem_f32, layer1_kernel.pack_layer1(base.layer1, f32), f32), F32_TOL)
+        err = errs["layer1"]
         _, h1, w1, _ = stem_bf.shape
         macs = (64 * 64 + 9 * 64 * 64 + 64 * 256 + 64 * 256) + 2 * (256 * 64 + 9 * 64 * 64 + 64 * 256)
         weights = [v for pk in packed_bf for v in pk.values() if v is not None]
@@ -555,6 +613,318 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
         base.stages_fused = 0
     # on the host, so the VGG-16 path's peak memory stays its own
     return results, launches, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+EVAL_IMAGES = 8
+EVAL_IMAGE_SIZE = (480, 640)      # resized to 800×1067, padded to 800×1088
+EVAL_BLOB_HW = (800, 1088)
+
+
+def eval_stages(model, cfg, jobs) -> dict:
+    """Where one image's time goes in the eval loop: host clock around each
+    stage, each ended by a device sync (in the loop they overlap). The
+    second pass is the one kept."""
+    from rlobjectdetection_tpu_torch.data.prefetch import to_device
+    from rlobjectdetection_tpu_torch.engine.test_net import postprocess_batch
+
+    dev = next(model.parameters()).device
+    lap = Laps()
+    with torch.inference_mode():
+        for _ in range(2):
+            lap.start()
+            idxs, b, _ = jobs.assemble_job(jobs.plan[0])
+            lap("host assembly (PIL decode, numpy resize, pad)")
+            data, info = to_device(b["data"], dev), to_device(b["im_info"], dev)
+            lap("copy to the card (pinned, non-blocking)")
+            out = model(data, info)
+            lap("forward")
+            packed = postprocess_batch(model, out, info, len(idxs), cfg)
+            lap("postprocess (per-class NMS, top-100)")
+            packed.cpu()
+            lap("copy to the host")
+    return lap.stages
+
+
+def eval_kernel_checks(model, loader, flush) -> dict:
+    """The eval loop's kernels against their plain versions at the shapes
+    the loop gives them: the stem and layer1 on the first image's
+    [1, 800, 1088, 3] blob and on the first two images' [2, 800, 1088, 3]
+    canvas, the whole C4 base on each, and RoIAlignAvg on each one's
+    features and proposals (300 and 600 rois on [1 | 2, 50, 68, 1024]).
+    Returns each kernel's largest bf16 (max abs, max rel) over these."""
+    dev = next(model.parameters()).device
+    errs = {}
+    with torch.no_grad():
+        for n in (1, 2):
+            b = (loader._assemble([0], 1.0) if n == 1 else
+                 loader._assemble([0, 1], 1.0, pad_hw=EVAL_BLOB_HW, pad_count=2))
+            data = torch.from_numpy(b["data"]).to(dev)
+            info = torch.from_numpy(b["im_info"]).to(dev)
+            check(tuple(data.shape) == (n, *EVAL_BLOB_HW, 3), f"eval blob {tuple(data.shape)}")
+            e = stem_layer1_parity(f" (eval loop, {n}x800x1088)", model.base, data)[0]
+            base_check(f"eval loop, {n}x800x1088", model.base, data, BASE_FEAT_TOL)
+            feat = model.base(data, fwd_only=True)
+            rois = model.proposals(feat, info)[0].reshape(-1, 5).contiguous()
+            check(tuple(feat.shape) == (n, 50, 68, 1024) and tuple(rois.shape) == (300 * n, 5),
+                  f"eval head inputs {tuple(feat.shape)} {tuple(rois.shape)}")
+            e["roi_align_avg"] = roi_align_check(f"eval loop C=1024 B={n} R={300 * n}", feat,
+                                                 rois, flush, BF16_TOL["roi_align_avg"])["err"]
+            for k, v in e.items():
+                errs[k] = tuple(map(max, errs.get(k, (0.0, 0.0)), v))
+    return errs
+
+
+def fingerprint(data: torch.Tensor) -> torch.Tensor:
+    """Each blob row's f32 bits summed as integers: exact, order-free."""
+    return torch.sum(data.view(torch.int32), dim=(1, 2, 3), dtype=torch.int64)
+
+
+def loop_rows_check(model, cfg, loader, runs) -> dict:
+    """Check 2 on what the loop itself produced: `runs[batch]` holds its
+    detections and, for each batch as detect_loop's on_batch hook saw it,
+    the indices, the blob rows' fingerprints, im_info and the model's
+    outputs. Held exactly: each run sends every image through one row; a
+    batch-2 row holds the bits and im_info of its image's batch-1 blob; each
+    image's detections are those its row's own outputs give. Held to the
+    bf16 bounds: batch 2's base features against batch 1's, and each batch-2
+    row's class probabilities and deltas against the head run on its
+    image's batch-1 features with that row's own rois (largest gap over the
+    largest value); the head's gap against another image's features
+    (image i xor 1: what a row handed to the wrong image would show) is held
+    beyond that bound. Recorded: how many of the row's rois lie within 1 px
+    of one the batch-1 loop proposed."""
+    from rlobjectdetection_tpu_torch.engine.test_net import postprocess_batch, unpack_dets
+
+    dev = next(model.parameters()).device
+    rows = {batch: {} for batch in runs}
+    for batch, (dets, _, _, caught) in runs.items():
+        for idxs, fp, info, out in caught:
+            check(len(idxs) <= batch and fp.shape[0] == info.shape[0] == batch,
+                  f"check 2 batch {batch}: {len(idxs)} images in a {fp.shape[0]}-row batch")
+            packed = postprocess_batch(model, out, info, len(idxs), cfg).cpu().numpy()
+            for j, i in enumerate(idxs):
+                check(i not in rows[batch], f"check 2 batch {batch}: image {i} in two rows")
+                rows[batch][i] = (fp[j], info[j], {k: v[j] for k, v in out.items()})
+                for got, want in zip(dets[i], unpack_dets(packed[j])):
+                    check(np.array_equal(got, want), f"check 2 batch {batch}: image {i}'s "
+                                                     f"detections are not its row's")
+        check(sorted(rows[batch]) == list(range(EVAL_IMAGES)),
+              f"check 2 batch {batch}: images seen {sorted(rows[batch])}")
+    one, two = rows[1], rows[2]
+    check(len({int(one[i][0]) for i in one}) == EVAL_IMAGES, "check 2: blob fingerprints repeat")
+    gaps = {"cls_prob": 0.0, "bbox_pred": 0.0}
+    wrong = {"cls_prob": float("inf"), "bbox_pred": float("inf")}
+    near = []
+    with torch.no_grad():
+        singles = [torch.from_numpy(loader._assemble([i], 1.0)["data"]).to(dev)
+                   for i in range(EVAL_IMAGES)]
+        f1 = [model.base(d, fwd_only=True) for d in singles]
+        for i in range(EVAL_IMAGES):
+            fp, info, out = two[i]
+            check(int(fp) == int(one[i][0]) == int(fingerprint(singles[i])[0]),
+                  f"check 2: the batch-2 row of image {i} does not hold its batch-1 blob")
+            check(torch.equal(info, one[i][1]), f"check 2: image {i}'s im_info {info.tolist()} "
+                                                f"!= {one[i][1].tolist()}")
+            rois = out["rois"][None].clone()
+            rois[..., 0] = 0.0
+            for k, feat in ((i, f1[i]), (i ^ 1, f1[i ^ 1])):
+                cls, bbox = model.detect_head(feat, rois)
+                e = {"cls_prob": max_errs(out["cls_prob"], cls[0])[1],
+                     "bbox_pred": max_errs(out["bbox_pred"], bbox[0])[1]}
+                for name, v in e.items():
+                    if k == i:
+                        gaps[name] = max(gaps[name], v)
+                    else:
+                        wrong[name] = min(wrong[name], v)
+            r1 = one[i][2]["rois"]
+            near.append(float(((out["rois"][:, None, 1:] - r1[None, :, 1:]).abs().amax(-1)
+                               .amin(-1) <= 1.0).float().mean()))
+        pair = loader._assemble([0, 1], 1.0, pad_hw=EVAL_BLOB_HW, pad_count=2)
+        f2 = model.base(torch.from_numpy(pair["data"]).to(dev), fwd_only=True)
+        base_rel = max_errs(f2, torch.cat(f1[:2]))[1]
+    torch.cuda.synchronize()
+    return {"base_feat max rel (images 0-1)": base_rel,
+            "cls_prob max rel (own rois)": gaps["cls_prob"],
+            "bbox_pred max rel (own rois)": gaps["bbox_pred"],
+            "cls_prob max rel against another image (least)": wrong["cls_prob"],
+            "bbox_pred max rel against another image (least)": wrong["bbox_pred"],
+            "rois within 1 px of a batch-1 roi (least image)": min(near)}
+
+
+def eval_path(cfg, det_state: dict) -> tuple[dict, dict]:
+    """The eval loop of `engine/test_net.py` over a synthetic COCO split of
+    EVAL_IMAGES images (80 categories, so the flagship's 81-class head) at
+    TEST.SCALES [800]: once at batch 1 (over `device_prefetch`), once at
+    batch 2 (shape buckets), the launch counts set to 0 before each and read
+    after. Check 1: each image's detections equal `Detector.detect` on the
+    same file; check 2: what each run produced, row by row
+    (`loop_rows_check`), with batch 2's all_boxes against batch 1's
+    recorded; check 3: the gt as detections scores AP 1.0 with the port's
+    COCOeval. The stem, layer1 and RoIAlignAvg kernels are then held against
+    their plain versions at the loop's shapes. Returns the launches over both
+    runs and each kernel's largest bf16 error at those shapes."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from rlobjectdetection_tpu_torch.data.blob import read_image_bgr
+    from rlobjectdetection_tpu_torch.data.imdb import combined_roidb
+    from rlobjectdetection_tpu_torch.data.loader import RoiBatchLoader
+    from rlobjectdetection_tpu_torch.data.synthetic import make_coco_dataset
+    from rlobjectdetection_tpu_torch.engine import test_net
+    from rlobjectdetection_tpu_torch.engine.detect import detections_to_all_boxes
+    from rlobjectdetection_tpu_torch.engine.serve import Detector
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+
+    dev = torch.device("cuda")
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output")
+    os.makedirs(out_root, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="eval_path_", dir=out_root)
+    prev_root = os.environ.get("RLOD_DATA_DIR")
+    try:
+        make_coco_dataset(root, num_images=EVAL_IMAGES, image_size=EVAL_IMAGE_SIZE,
+                          classes=tuple(f"category{i:02d}" for i in range(1, NUM_CLASSES)),
+                          seed=3)
+        os.environ["RLOD_DATA_DIR"] = root
+        with contextlib.redirect_stdout(io.StringIO()):
+            imdb_obj, roidb, ratio_list, ratio_index = combined_roidb(
+                "coco_2014_minival", training=False, use_flipped=False)
+        check(imdb_obj.num_classes == NUM_CLASSES and len(roidb) == EVAL_IMAGES,
+              f"eval roidb: {imdb_obj.num_classes} classes, {len(roidb)} images")
+        model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev)
+        model.load_state_dict(det_state)
+        counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                    "roi_align_avg": roi_align_kernel.roi_align_avg}
+        runs, launches = {}, {k: 0 for k in counters}
+        for batch in (1, 2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for f in counters.values():
+                f.launches = 0
+            caught = []
+            keep = lambda idxs, data, info, out: caught.append(
+                (list(idxs), fingerprint(data), info, out))
+            with contextlib.redirect_stdout(io.StringIO()):
+                dets, stats = test_net.detect_loop(model, cfg, roidb, ratio_list, ratio_index,
+                                                   batch=batch, on_batch=keep)
+            moved = {k: f.launches for k, f in counters.items()}
+            stats["peak_bytes"] = torch.cuda.max_memory_allocated()
+            check(all(moved.values()), f"eval loop batch {batch}: a kernel of the path was "
+                                       f"not launched: {moved}")
+            check(stats["shape_buckets"] == {EVAL_BLOB_HW: EVAL_IMAGES},
+                  f"eval loop batch {batch}: shapes {stats['shape_buckets']}")
+            for i, (boxes, scores, classes, valid) in enumerate(dets):
+                check(boxes.shape == (100, 4) and np.isfinite(boxes).all()
+                      and np.isfinite(scores).all() and int(valid.sum()) >= 1
+                      and ((classes[valid] >= 1) & (classes[valid] < NUM_CLASSES)).all(),
+                      f"eval loop batch {batch} image {i}: bad detections")
+            launches = {k: launches[k] + moved[k] for k in counters}
+            runs[batch] = dets, stats, moved, caught
+
+        # check 1: the loop's detections against Detector.detect on each file
+        detector = Detector(model, cfg, dev)
+        gap, equal = 0.0, True
+        for i, e in enumerate(roidb):
+            want = detector.detect(read_image_bgr(e["image"]))
+            for got, w in zip(runs[1][0][i], want):
+                equal &= got.shape == w.shape and np.array_equal(got, w)
+                if got.dtype.kind == "f":
+                    gap = max(gap, float(np.abs(got - w).max()))
+                else:
+                    check(np.array_equal(got, w), f"check 1 image {i}: classes or validity differ")
+        print(f"eval path check 1 (loop at batch 1 vs Detector.detect, {EVAL_IMAGES} images): "
+              f"{'equal to the bit' if equal else 'largest gap ' + repr(gap)}", flush=True)
+        check(equal, f"check 1: the loop's detections differ from Detector.detect by {gap}")
+
+        # check 2: each run's own rows; then batch 2 against batch 1, class
+        # by class, and where they part
+        loader = RoiBatchLoader(roidb, ratio_list, ratio_index, 1, scales=cfg.TEST.SCALES,
+                                max_num_gt=cfg.MAX_NUM_GT_BOXES, training=False)
+        rows = loop_rows_check(model, cfg, loader, runs)
+        one = detections_to_all_boxes(runs[1][0], NUM_CLASSES)
+        two = detections_to_all_boxes(runs[2][0], NUM_CLASSES)
+        cells = [(j, i) for j in range(1, NUM_CLASSES) for i in range(EVAL_IMAGES)]
+        n_diff = sum(one[j][i].shape != two[j][i].shape for j, i in cells)
+        gap2 = max((float(np.abs(one[j][i] - two[j][i]).max()) for j, i in cells
+                    if one[j][i].size and one[j][i].shape == two[j][i].shape), default=0.0)
+        print(f"eval path check 2 (each run's rows: images, blob bits, im_info and "
+              f"detections exact; batch 2 vs batch 1): {rows}; {n_diff} of {len(cells)} "
+              f"(class, image) cells differ in count, largest gap where they agree {gap2!r}",
+              flush=True)
+        # cuDNN runs layer2-4 with other algorithms on a batch of two: the
+        # features move by bf16 steps, held to the bound of one backbone
+        # computed two ways in bf16, and the head on the same rois to
+        # EVAL_HEAD_TOL, which a row handed to the wrong image must exceed;
+        # the random weights' RPN scores lie so close that those steps
+        # reorder the proposals, so detection sets may differ and are
+        # recorded, not held
+        k = "base_feat max rel (images 0-1)"
+        check(rows[k] <= BASE_FEAT_TOL[torch.bfloat16],
+              f"check 2: {k} {rows[k]:.3e} > {BASE_FEAT_TOL[torch.bfloat16]:.1e}")
+        for out in ("cls_prob", "bbox_pred"):
+            own = rows[f"{out} max rel (own rois)"]
+            other = rows[f"{out} max rel against another image (least)"]
+            check(own <= EVAL_HEAD_TOL < other,
+                  f"check 2: {out} max rel {own:.3e} (own image), {other:.3e} (another "
+                  f"image), bound {EVAL_HEAD_TOL}")
+
+        # the scoring stage, on the loop's own detections
+        out_dir = os.path.join(root, "eval_out")
+        os.makedirs(out_dir)
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            imdb_obj.evaluate_detections(one, out_dir)
+            score_ms = (time.perf_counter() - t0) * 1e3
+
+        # check 3: the gt as detections scores AP 1.0 (no cv2, no pycocotools)
+        gt_boxes = [[np.concatenate([e["boxes"][e["gt_classes"] == j].astype(np.float32),
+                                     np.ones((int((e["gt_classes"] == j).sum()), 1),
+                                             np.float32)], 1) for e in roidb]
+                    for j in range(NUM_CLASSES)]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            gt_stats = imdb_obj.evaluate_detections(gt_boxes, out_dir)
+        ap_line = next(l for l in text.getvalue().splitlines()
+                       if "Average Precision  (AP) @[ IoU=0.50:0.95 | area=   all" in l)
+        print(f"eval path check 3 (gt as detections, port COCOeval): {ap_line.strip()}; "
+              f"cv2 loaded {'cv2' in sys.modules}, pycocotools loaded "
+              f"{'pycocotools' in sys.modules}", flush=True)
+        check(gt_stats[0] == 1.0 and gt_stats[1] == 1.0, f"check 3: gt AP {gt_stats[:3]}")
+        check("cv2" not in sys.modules and "pycocotools" not in sys.modules,
+              "the eval path loaded cv2 or pycocotools")
+
+        stages = eval_stages(model, cfg, test_net.EvalJobs(loader, 1, cfg.TEST.SCALES))
+        stages["scoring (COCOeval of the loop's detections, 8 images)"] = round(score_ms, 3)
+        print(f"eval path stages ms (batch 1, one image, each stage synced): {stages}",
+              flush=True)
+        for batch in (1, 2):
+            _, st, moved, _ = runs[batch]
+            n = st["images"]
+            print(f"eval path batch {batch}: {n / st['wall_s']:.3f} images/s wall, "
+                  f"{n / st['device_s']:.3f} device-timed, "
+                  f"{st['steady_images'] / max(st['steady_s'], 1e-9):.3f} steady over "
+                  f"{st['steady_images']} images; host assembly "
+                  f"{st['assembly_ms_per_image']:.3f} ms an image (worker threads), device "
+                  f"{st['device_s'] * 1e3 / n:.3f} ms an image (forward, postprocess, copy "
+                  f"back); {st['wait_s'] * 1e3:.3f} ms between batches after the first "
+                  f"(the device idle); peak memory {st['peak_bytes']} bytes; shape buckets "
+                  f"{ {f'{h}x{w}': k for (h, w), k in st['shape_buckets'].items()} }; "
+                  f"launches {moved}", flush=True)
+
+        # the kernels against their plain versions at the loop's shapes
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        errs = eval_kernel_checks(model, loader, flush)
+        del model, detector, runs, flush
+        torch.cuda.empty_cache()
+        return launches, errs
+    finally:
+        if prev_root is None:
+            os.environ.pop("RLOD_DATA_DIR", None)
+        else:
+            os.environ["RLOD_DATA_DIR"] = prev_root
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def vgg16(cfg, images) -> tuple[dict, dict, dict]:
@@ -751,17 +1121,10 @@ def rl_net(det_state: dict) -> tuple[dict, dict]:
     data = torch.from_numpy(batch["data"]).to(dev)
     bboxes = torch.from_numpy(batch["bboxes"]).to(dev)
     rois = bboxes.reshape(-1, 8)[:, :5].contiguous()
-    stages, t = {}, 0.0
-
-    def lap(name):
-        nonlocal t
-        torch.cuda.synchronize()
-        stages[name] = round((time.perf_counter() - t) * 1e3, 3)
-        t = time.perf_counter()
-
+    lap = Laps()
     with torch.no_grad():
         for _ in range(2):                      # the second pass is the one kept
-            t = time.perf_counter()
+            lap.start()
             feat = model.base(data)
             lap("trunk (stem, layer1, layer2-3 kernels)")
             roi_feat = roi_align_kernel.roi_align_avg(feat, rois)
@@ -773,7 +1136,7 @@ def rl_net(det_state: dict) -> tuple[dict, dict]:
             xywh[..., 2:] -= xywh[..., :2]
             action.move_from_act(xywh, p, batch["labels"][..., 1], 1)
             lap("move (copy to the host, teacher-forced top-1 move)")
-    print(f"rl request stages ms: {stages}", flush=True)
+    print(f"rl request stages ms: {lap.stages}", flush=True)
 
     # the residual-stage kernel at the shapes the requests gave it
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -919,19 +1282,12 @@ def train_stages(model, batch, seed: int, backbone: str = "resnet101",
     c, t = model.cfg, model.cfg.TRAIN
     opt, sched, _ = build_optimizer(model, backbone, base_lr=0.01, clip_norm=clip_norm)
     data, info, gt = batch["data"], batch["im_info"], batch["gt_boxes"]
-    stages, t0 = {}, 0.0
-
-    def lap(name):
-        nonlocal t0
-        torch.cuda.synchronize()
-        stages[name] = round((time.perf_counter() - t0) * 1e3, 3)
-        t0 = time.perf_counter()
-
+    lap = Laps()
     for _ in range(2):                          # the second pass is the one kept
         uniform = uniform_source(torch.Generator(device=data.device).manual_seed(seed),
                                  data.device)
         b, a = data.shape[0], model.num_anchors
-        t0 = time.perf_counter()
+        lap.start()
         opt.zero_grad(set_to_none=True)
         base_feat = model.base(data)
         lap(names[0])
@@ -965,7 +1321,7 @@ def train_stages(model, batch, seed: int, backbone: str = "resnet101",
         lap("optimizer step (SGD)" + (f", clip {clip_norm}" if clip_norm else ""))
         float(loss.detach())
         lap("copy the loss to the host")
-    return stages
+    return lap.stages
 
 
 def roi_align_bwd_check(label, feat_shape, rois, grad, flush) -> dict:
@@ -1462,6 +1818,7 @@ def main() -> None:
     images = [rng.randint(0, 256, (h, w, 3)).astype(np.float32) for h, w in IMAGE_SIZES]
     results, launches, det_state = flagship(cfg, images)
     torch.cuda.empty_cache()
+    eval_launches, eval_errs = eval_path(cfg, det_state)
     vgg_results, vgg_launches, vgg_state = vgg16(cfg, images)
     torch.cuda.empty_cache()
 
@@ -1484,14 +1841,18 @@ def main() -> None:
     # 8. the kernels line: launches over both detectors' requests, over the
     # RL path's requests and train steps for the residual stage, and over
     # both detectors' train steps (block 1, RoIAlignAvg and its backward)
-    roi_launches = (launches["roi_align_avg"] + vgg_launches["roi_align_avg"]
-                    + vgg_train_launches["roi_align_avg"])
+    roi_launches = (launches["roi_align_avg"] + eval_launches["roi_align_avg"]
+                    + vgg_launches["roi_align_avg"] + vgg_train_launches["roi_align_avg"])
+    for k, e in eval_errs.items():                # the largest error over both shapes
+        results[k]["err"] = tuple(map(max, results[k]["err"], e))
     results["vgg_block1"] = vgg_results["vgg_block1"]
     results["res_stage"] = rl_results["res_stage"]
     roi_rl = rl_results.pop("roi_align_avg C=1024 R=64")
     results["roi_align_avg_bwd"] = train_results["roi_align_avg_bwd"]
     bwd_steady = train_results["roi_align_avg_bwd steady"]
-    launches = dict(launches, roi_align_avg=roi_launches, res_stage=rl_launches["res_stage"],
+    launches = dict(launches, stem=launches["stem"] + eval_launches["stem"],
+                    layer1=launches["layer1"] + eval_launches["layer1"],
+                    roi_align_avg=roi_launches, res_stage=rl_launches["res_stage"],
                     vgg_block1=vgg_launches["vgg_block1"] + vgg_train_launches["vgg_block1"],
                     roi_align_avg_bwd=(train_launches["roi_align_avg_bwd"]
                                        + vgg_train_launches["roi_align_avg_bwd"]))
@@ -1505,7 +1866,9 @@ def main() -> None:
                              "rlobjectdetection_tpu/ops/res_stage_pallas.py:284"),
                "roi_align_avg_bwd": ("csrc/roi_align.cu",
                                      "rlobjectdetection_tpu/ops/roi_align_vjp.py:39 (XLA)")}
-    where = {"roi_align_avg": f"in 6 requests and {TRAIN_STEPS} vgg16 train steps",
+    in_eval = f"the eval loop's {EVAL_IMAGES} images at batch 1 and at batch 2"
+    where = {"stem": f"in 3 requests and {in_eval}", "layer1": f"in 3 requests and {in_eval}",
+             "roi_align_avg": f"in 6 requests, {in_eval} and {TRAIN_STEPS} vgg16 train steps",
              "vgg_block1": f"in 3 vgg16 requests and {TRAIN_STEPS} vgg16 train steps",
              "res_stage": "in 3 RL requests and 3 RL train steps (layer2 + layer3)",
              "roi_align_avg_bwd": f"in {TRAIN_STEPS} resnet101 and {TRAIN_STEPS} vgg16 "

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from ..config import DATASET_OVERRIDES, Config, cfg_from_list, cfg_update
-from ..data.blob import PIXEL_MEANS_BGR, pad_shape, prep_im_for_blob, read_image_bgr
+from ..data.blob import PIXEL_MEANS_BGR, prep_im_for_blob, read_image_bgr
+from ..data.minibatch import im_list_to_blob
 from ..device import resolve_device
 from ..models import FasterRCNN
 from .checkpoint import load_net_npz
@@ -45,11 +46,8 @@ class Detector:
         """Mean-subtracted, resized, 32-padded `[1, H, W, 3]` blob and its
         im_info `[1, 3]` (h, w, scale) as numpy."""
         im, im_scale = prep_im_for_blob(im_bgr, PIXEL_MEANS_BGR, self.cfg.TEST.SCALES[0])
-        ph, pw = pad_shape(im.shape[0], im.shape[1])
-        blob = np.zeros((1, ph, pw, 3), dtype=np.float32)
-        blob[0, :im.shape[0], :im.shape[1]] = im
         im_info = np.array([[im.shape[0], im.shape[1], im_scale]], dtype=np.float32)
-        return blob, im_info
+        return im_list_to_blob([im]), im_info
 
     @torch.inference_mode()
     def detect(self, im_bgr: np.ndarray):
@@ -66,9 +64,10 @@ class Detector:
 
 
 def build_config(dataset: str, set_cfgs=None) -> Config:
-    """Config() + the dataset's anchors + the fused kernels on + `--set`.
-    VGG-16 reads CONV1_FUSED (its block-1 kernel) and ignores LAYER1_FUSED."""
-    cfg = cfg_update(Config(), dict(DATASET_OVERRIDES[dataset],
+    """Config() + the dataset's anchors (none for a name without overrides,
+    such as an imdb name) + the fused kernels on + `--set`. VGG-16 reads
+    CONV1_FUSED (its block-1 kernel) and ignores LAYER1_FUSED."""
+    cfg = cfg_update(Config(), dict(DATASET_OVERRIDES.get(dataset, {}),
                                     CONV1_FUSED=True, LAYER1_FUSED=True))
     return cfg_from_list(cfg, set_cfgs) if set_cfgs else cfg
 

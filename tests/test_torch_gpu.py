@@ -615,3 +615,36 @@ def test_roi_modes_on_the_card_match_the_cpu(cuda, mode):
     (out, grad), (want_out, want_grad) = grads
     assert float(want_grad.abs().max()) > 0
     assert max_rel(out, want_out) <= 1e-5 and max_rel(grad, want_grad) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_eval_loop_gives_detector_detect_on_each_image(cuda, tmp_path, monkeypatch):
+    """`engine/test_net.py`'s eval loop (batch 1, device_prefetch) on two
+    synthetic COCO images at TEST.SCALES [800], bf16: each image's
+    detections equal `Detector.detect` on the same file to the bit (the
+    same blob, model and kernels), and the stem, layer1 and RoIAlignAvg
+    kernels launch in the loop."""
+    from rlobjectdetection_tpu_torch.data.blob import read_image_bgr
+    from rlobjectdetection_tpu_torch.data.imdb import combined_roidb
+    from rlobjectdetection_tpu_torch.data.synthetic import make_coco_dataset
+    from rlobjectdetection_tpu_torch.engine import test_net
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+
+    make_coco_dataset(str(tmp_path), num_images=2, image_size=(480, 640))
+    monkeypatch.setenv("RLOD_DATA_DIR", str(tmp_path))
+    imdb_obj, roidb, ratio_list, ratio_index = combined_roidb(
+        "coco_2014_minival", training=False, use_flipped=False)
+    cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"])
+    model = FasterRCNN(imdb_obj.num_classes, "resnet50", cfg, device=cuda)
+    counters = (stem_kernel.fused_stem, layer1_kernel.fused_layer1, roi_align_kernel.roi_align_avg)
+    before = [f.launches for f in counters]
+    dets, stats = test_net.detect_loop(model, cfg, roidb, ratio_list, ratio_index, batch=1)
+    assert all(f.launches > n for f, n in zip(counters, before))
+    assert stats["shape_buckets"] == {(800, 1088): 2}
+    detector = Detector(model, cfg, cuda)
+    for i, e in enumerate(roidb):
+        want = detector.detect(read_image_bgr(e["image"]))
+        for got, w in zip(dets[i], want):
+            assert got.dtype == w.dtype
+            np.testing.assert_array_equal(got, w)

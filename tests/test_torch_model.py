@@ -261,6 +261,10 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
         Detector(torch.nn.Identity(), Config())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--image_dir", os.path.dirname(__file__), "--net", "res50"])
+    from rlobjectdetection_tpu_torch.engine import test_net
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        test_net.main(["--dataset", "pascal_voc", "--net", "res50"])
 
 
 def test_resnet_train_forward_returns_the_four_losses(models, jax_forward):
