@@ -77,6 +77,24 @@ step's stages, the backward kernel at C=512 against its plain version and
 bit for bit against itself (first-step and steady rois), and one whole step
 with the kernels against their plain versions in f32 and in bf16.
 
+Then the training CLI (`engine/trainval_net.py`, called in process) on a
+synthetic COCO set made under `output/` (32 images of 480×640, 80
+categories, in the train and valminusminival splits; 4 more in minival,
+whose files must not collide with valminusminival's): the flagship from
+`--pretrained` weights (the flagship's, frozen-BN statistics taken from a
+CLI batch as a pretrained net's are) at batch 2 and at batch 8, two
+epochs each at lr 0.01, with epoch 2's images/s (wall and steady), host
+assembly, the card's wait between steps and peak memory printed, and the
+stem, layer1 and both RoIAlignAvg launch counts read over the batch-2 run
+(at least one a step, layer1 three); one of the CLI's batches with the
+kernels against their plain versions (f32, bf16); the checkpoint's bytes
+and its save and load times; `engine/resume_validate.py` (8 images, 2
+epochs, batch 2, fresh processes under deterministic algorithms);
+`test_net --load_dir` on the epoch-2 checkpoint (its COCOeval table, its
+pooling_mode restored, image 0's detections equal to `Detector.detect`'s
+on the same weights, to the bit); `demo` over 3 minival images (3
+`_det.jpg` files).
+
 Last, the flagship with POOLING_MODE pool, then crop (plain PyTorch on the
 card: XLA in JAX, no TPU kernel): three requests and one request's stages,
 two train steps, the op on the card against the same op on a CPU copy in
@@ -87,7 +105,10 @@ Every phase raises on failure and the script exits non-zero: no CUDA, a
 kernel that does not build or launch, a kernel that disagrees with its plain
 version, a request that gives a wrong shape, non-finite values, no valid
 detection, an eval loop whose detections leave `Detector.detect`'s, whose
-rows are not their images' or whose gt does not score AP 1.0, a train step whose loss is not finite, that moves the frozen
+rows are not their images' or whose gt does not score AP 1.0, a training
+CLI run that writes a non-finite checkpoint, launches a kernel less than
+once a step, does not resume to the same tensors, or whose `test_net` or
+`demo` fails, a train step whose loss is not finite, that moves the frozen
 trunk or leaves the head unchanged, a whole train step whose losses or
 updates leave their bounds, a pool or crop result on the card that leaves
 the CPU's, or a kernel the path did not launch. The
@@ -1364,56 +1385,117 @@ def roi_align_bwd_check(label, feat_shape, rois, grad, flush) -> dict:
     return r
 
 
+@contextlib.contextmanager
+def proposals_taken(model, store: list, replay: bool):
+    """The train forward's proposal layer recorded into `store`, or with
+    `replay` handed back from it in order; restored after."""
+    propose = model._propose
+    if replay:
+        recorded = iter(store)
+        model._propose = lambda *args, **kw: next(recorded)
+    else:
+        model._propose = lambda *args, **kw: store.append(propose(*args, **kw)) or store[-1]
+    try:
+        yield
+    finally:
+        del model._propose
+
+
 def step_vs_plain(model, batch, state: dict, dtype, backbone: str = "resnet101",
-                  clip_norm: float | None = None) -> list[str]:
+                  clip_norm: float | None = None, same_proposals: bool = False,
+                  gates: bool = False, hold: bool = True, nudge: bool = False,
+                  exact: bool = False) -> tuple[list[str], dict]:
     """One train step from `state` with the kernels and one with their plain
     versions (same sampling and dropout seed): prints the four losses'
     relative gaps and the largest update gap of a trainable tensor (relative
-    to its largest update); returns the bounds they break. In f32 a VGG-16
-    plain run takes the kernel run's max-pool routes and ReLU gates
-    (`vgg_ties`), where rounding decides them."""
-    from rlobjectdetection_tpu_torch.models.backbones import vgg, vgg_ties
+    to its largest update); returns the bounds they break (none where
+    `hold` is false) and the kernel run's metrics. In f32 a VGG-16 plain
+    run takes the kernel run's max-pool routes and ReLU gates (`vgg_ties`),
+    and with `gates` a ResNet plain run takes its ReLU gates
+    (`resnet_ties`), where rounding decides them; each replayed decision
+    must lie within TIE_SIZE_TOL of the other side. With `same_proposals`
+    the plain run takes the kernel run's proposals (the proposal layer takes
+    no gradient; its top-k and NMS over scores that rounding reorders decide
+    which rois are sampled, where proposals overlap the gt boxes). With
+    `nudge` both runs take the plain versions and the second's input is
+    moved by one f32 step (x (1 + 2^-23)): no kernel at all, so the gaps are
+    the comparison's own floor at `state`. With `exact` (f32) a third run
+    takes the plain versions in f64 (the kernel run's proposals and gates),
+    each run's largest update error against it is printed, and the kernel
+    run's updates are held to TRAIN_UPDATE_TOL of that exact step instead
+    of the plain f32 run's (whose own error is printed beside)."""
+    from rlobjectdetection_tpu_torch.models.backbones import resnet_ties, vgg, vgg_ties
 
     model.dtype = model.base.dtype = dtype
     ties, counts = {}, None
-    if dtype == torch.float32 and isinstance(model.base, vgg.VGGBase):
+    is_vgg = isinstance(model.base, vgg.VGGBase)
+    if dtype == torch.float32 and (is_vgg or gates):
         counts = {}
-        record = vgg_ties.record(model.base, ties)
-        replay = vgg_ties.replay(model.base, ties, counts)
+        record = (vgg_ties.record(model.base, ties) if is_vgg
+                  else resnet_ties.record(model, ties))
+        replay = lambda c: (vgg_ties.replay(model.base, ties, c) if is_vgg
+                            else resnet_ties.replay(model, ties, c))
     else:
-        record = replay = contextlib.nullcontext()
+        record, replay = contextlib.nullcontext(), lambda c: contextlib.nullcontext()
+    proposals = []
+    take = (lambda replay_: proposals_taken(model, proposals, replay_)) if same_proposals \
+        else (lambda replay_: contextlib.nullcontext())
     with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
         model.load_state_dict(state)
-        with record:
+        with plain_train_path(model) if nudge else contextlib.nullcontext(), record, \
+                take(False):
             got, got_up = one_train_step(model, batch, 9, backbone, clip_norm)
         model.load_state_dict(state)
-        with plain_train_path(model), replay:
-            want, want_up = one_train_step(model, batch, 9, backbone, clip_norm)
+        moved = dict(batch, data=batch["data"] * (1 + 2.0 ** -23)) if nudge else batch
+        with plain_train_path(model), replay(counts), take(True):
+            want, want_up = one_train_step(model, moved, 9, backbone, clip_norm)
+        if exact:
+            model.load_state_dict(state)
+            model.dtype = model.base.dtype = torch.float64
+            with plain_train_path(model), replay({}), take(True):
+                ref_up = one_train_step(model, batch, 9, backbone, clip_norm)[1]
+            model.dtype = model.base.dtype = dtype
     gaps = {k: abs(got[k] - want[k]) / abs(want[k]) for k in
             ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")}
-    up_rel, up_leaf = max((((got_up[n] - want_up[n]).abs().max()
-                            / want_up[n].abs().max()).item(), n) for n in want_up)
-    print(f"train step {str(dtype)[6:]} (kernels vs plain versions): losses "
+    gap = lambda ups, to: max((((ups[n] - to[n]).abs().max() / to[n].abs().max()).item(), n)
+                              for n in to)
+    up_rel, up_leaf = gap(got_up, want_up)
+    held_rel, held_leaf = gap(got_up, ref_up) if exact else (up_rel, up_leaf)
+    took = []
+    if counts is not None and is_vgg:
+        took.append(f"routes in {counts['pools']} pools (its own max at most "
+                    f"{counts['routed']:.3e} of the layer's largest above the routed value)")
+    if counts is not None:
+        took.append(f"ReLU gates ({counts['flipped']} inputs' signs flipped, at most "
+                    f"{counts['flipped_max']:.3e} of the layer's largest; bound "
+                    f"{TIE_SIZE_TOL:.0e})")
+    if same_proposals:
+        took.append("proposals")
+    print(f"train step {str(dtype)[6:]} ("
+          f"{'plain vs plain on the input moved one step' if nudge else 'kernels vs plain versions'}"
+          f"{'' if hold else '; printed, not held'}): losses "
           f"{[round(got[k], 6) for k in gaps]} vs {[round(want[k], 6) for k in gaps]}, "
           f"relative gaps {gaps} (bound {TRAIN_LOSS_TOL[dtype]:.1e}); fg/bg "
           f"{int(got['fg_cnt'])}/{int(got['bg_cnt'])} vs "
           f"{int(want['fg_cnt'])}/{int(want['bg_cnt'])}; largest update gap "
           f"{up_rel:.3e} of a leaf's max |update| ({up_leaf})"
-          + (f"; the plain run took the kernel run's routes in {counts['pools']} pools (its "
-             f"own max at most {counts['routed']:.3e} of the layer's largest above the routed "
-             f"value) and its sign at {counts['flipped']} conv outputs (at most "
-             f"{counts['flipped_max']:.3e} of the layer's largest; bound on both "
-             f"{TIE_SIZE_TOL:.0e})" if counts is not None else ""),
+          + (f"; the {'second run took the first' if nudge else 'plain run took the kernel run'}"
+             f"'s {', '.join(took)}" if took else "")
+          + (f"; against the f64 step the kernel run's largest update error is "
+             f"{held_rel:.3e} ({held_leaf}), the plain run's {gap(want_up, ref_up)[0]:.3e}"
+             if exact else ""),
           flush=True)
     failed = []
-    if counts is not None and max(counts["routed"], counts["flipped_max"]) > TIE_SIZE_TOL:
+    if counts is not None and max(counts.get("routed", 0.0), counts["flipped_max"]) \
+            > TIE_SIZE_TOL:
         failed.append(f"train step f32: a replayed decision was no tie: {counts}")
     if max(gaps.values()) > TRAIN_LOSS_TOL[dtype]:
         failed.append(f"train step {dtype}: loss gaps {gaps} > {TRAIN_LOSS_TOL[dtype]}")
-    if dtype == torch.float32 and up_rel > TRAIN_UPDATE_TOL:
-        failed.append(f"train step f32: update gap {up_rel:.3e} ({up_leaf}) > "
+    if dtype == torch.float32 and held_rel > TRAIN_UPDATE_TOL:
+        failed.append(f"train step f32: update gap {held_rel:.3e} ({held_leaf}"
+                      f"{', against the f64 step' if exact else ''}) > "
                       f"{TRAIN_UPDATE_TOL}")
-    return failed
+    return (failed if hold else []), got
 
 
 def train_path(det_state: dict) -> tuple[dict, dict]:
@@ -1522,7 +1604,7 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     # and with them the sampled rois.) Both dtypes print before either fails.
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
-        failed += step_vs_plain(model, batch, state0, dtype)
+        failed += step_vs_plain(model, batch, state0, dtype)[0]
     model.dtype = model.base.dtype = torch.bfloat16
     check(not failed, "; ".join(failed))
     return results, launches
@@ -1652,10 +1734,323 @@ def vgg_train_path(vgg_state: dict) -> tuple[dict, dict]:
     # parameters and draws (sampling and dropout from one seeded generator)
     failed = []
     for dtype in (torch.float32, torch.bfloat16):
-        failed += step_vs_plain(model, batch, state0, dtype, "vgg16", VGG_CLIP)
+        failed += step_vs_plain(model, batch, state0, dtype, "vgg16", VGG_CLIP)[0]
     model.dtype = model.base.dtype = torch.bfloat16
     check(not failed, "; ".join(failed))
     return results, launches
+
+
+TRAINVAL_IMAGES = 32          # 16 train + 16 valminusminival, flipped: 64 roidb entries
+TRAINVAL_MINIVAL = 4
+TRAINVAL_IMAGE_SIZE = (480, 640)                    # 800×1088 blobs at TRAIN.SCALES [800]
+TRAINVAL_BLOB = (2, 800, 1088, 3)
+TRAINVAL_NET = ("res101", "resnet101")
+TRAINVAL_SET = ["TRAIN.SCALES", "[800]", "DTYPE", "bfloat16"]
+TEST_SET = ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"]
+RESIDUAL_SCALE = 0.2
+# foreground rois the CLI batch's kernels-vs-plain step must sample (of 256;
+# the flagship's own weights sample 131 there): the head's box path and the
+# RoIAlignAvg backward's foreground rows take part
+CLI_MIN_FG = 64
+
+
+def loop_rates(label: str, stats: dict, peak: int) -> str:
+    n, wall, steady = stats["images"], stats["wall_s"], stats["steady_s"]
+    return (f"{label}: epoch {stats['epoch']} {n / wall:.3f} images/s wall ({n} images, "
+            f"{stats['steps']} steps, {wall:.3f} s, the loader in it), "
+            f"{stats['steady_images'] / steady:.3f} images/s steady (the epoch's first step "
+            f"dropped); host assembly {stats['assembly_ms_per_image']:.3f} ms an image (a "
+            f"worker thread); the card waits {stats['wait_s']:.4f} s between steps "
+            f"({100 * stats['wait_s'] / wall:.2f}% of the wall); checkpoint save "
+            f"{stats['save_ms']:.1f} ms; peak memory {peak} bytes")
+
+
+def calibrated_state(det_state: dict, cfg, backbone: str, batch: dict) -> dict:
+    """`det_state` made to train as a pretrained net does: every frozen-BN
+    mean and variance set from its input on `batch` (the eval forward of
+    the plain modules in f32, each BN's statistics taken just before it
+    runs), then each residual branch's last BN (`bn3`) scaled by
+    RESIDUAL_SCALE, as a trained ResNet's branches are small against their
+    identity path. With unit branches the features grow with each of the
+    33 blocks and SGD at lr 0.01 turns the losses to NaN within an epoch
+    (on the card, and at 256 px on the CPU within 3 steps); scaled, 16 CPU
+    steps at 256 px go from 5.6 to 1.4."""
+    from rlobjectdetection_tpu_torch.config import cfg_update
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import FrozenBatchNorm
+
+    plain = cfg_update(cfg, {"CONV1_FUSED": False, "LAYER1_FUSED": False, "DTYPE": "float32"})
+    model = FasterRCNN(NUM_CLASSES, backbone, plain, device=batch["data"].device)
+    model.load_state_dict(det_state)
+
+    def set_stats(bn, args):
+        x = args[0].double()
+        bn.mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.var.copy_(x.var(dim=(0, 2, 3)))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    with full_f32():
+        model(batch["data"], batch["im_info"])
+    for h in hooks:
+        h.remove()
+    return {k: v.detach().cpu() * (RESIDUAL_SCALE if k.endswith(("bn3.scale", "bn3.bias"))
+                                   else 1.0) for k, v in model.state_dict().items()}
+
+
+def cli_kernel_checks(model, batch, flush) -> dict:
+    """The training CLI's kernels against their plain versions at its
+    batch-8 shapes: the stem and layer1 on one of its [8, 800, 1088, 3]
+    blobs, the whole C4 base, RoIAlignAvg on its features [8, 50, 68,
+    1024] with the 8 x 128 rois the train forward samples, and the backward
+    at the same shape and rois. Returns each kernel's largest bf16 (max abs,
+    max rel)."""
+    data, dev = batch["data"], batch["data"].device
+    with torch.no_grad():
+        errs = stem_layer1_parity(" (training CLI, 8x800x1088)", model.base, data)[0]
+        base_check("training CLI, 8x800x1088", model.base, data, BASE_FEAT_TOL)
+        feat = model.base(data)
+        rois = model(data, batch["im_info"], batch["gt_boxes"], train=True,
+                     generator=torch.Generator(device=dev).manual_seed(7))["rois"]
+    rois = rois.reshape(-1, 5).contiguous()
+    check(tuple(feat.shape) == (8, 50, 68, 1024) and tuple(rois.shape) == (1024, 5),
+          f"training CLI head inputs {tuple(feat.shape)} {tuple(rois.shape)}")
+    errs["roi_align_avg"] = roi_align_check("training CLI C=1024 B=8 R=1024", feat, rois, flush,
+                                            BF16_TOL["roi_align_avg"])["err"]
+    grad = torch.randn((1024, 7, 7, 1024), generator=torch.Generator(device=dev).manual_seed(5),
+                       device=dev).to(torch.bfloat16)
+    errs["roi_align_avg_bwd"] = roi_align_bwd_check(
+        "training CLI B=8 R=1024 C=1024", tuple(feat.shape), rois, grad, flush)["err"]
+    return errs
+
+
+def trainval_path(det_state: dict) -> tuple[dict, dict]:
+    """The training CLI (`engine/trainval_net.py`, called in process) on a
+    synthetic COCO set made under `output/`: the flagship at batch 2 and at
+    batch 8, two epochs each, the stem, layer1 and both RoIAlignAvg
+    launch counts read over the batch-2 run; the kernels against their
+    plain versions at the batch-8 run's shapes (`cli_kernel_checks`); one
+    of the CLI's batch-2 batches, one step with the kernels against the
+    same step with their plain versions (f32 and bf16); resume equality
+    through `engine/resume_validate.py` (fresh processes under
+    deterministic algorithms); `test_net --load_dir` on the epoch-2
+    checkpoint against `Detector.detect`; `demo` over 3 images; the
+    checkpoint's size and its save and load times. Returns the batch-2
+    run's launches and each kernel's largest bf16 error at the batch-8
+    shapes."""
+    import io
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from rlobjectdetection_tpu_torch.data.blob import read_image_bgr
+    from rlobjectdetection_tpu_torch.data.imdb import combined_roidb
+    from rlobjectdetection_tpu_torch.data.loader import RoiBatchLoader
+    from rlobjectdetection_tpu_torch.data.synthetic import make_coco_dataset
+    from rlobjectdetection_tpu_torch.engine import (build_optimizer, demo, resume_validate,
+                                                    test_net, trainval_net)
+    from rlobjectdetection_tpu_torch.engine.checkpoint import (load_checkpoint, read_checkpoint,
+                                                               save_params)
+    from rlobjectdetection_tpu_torch.engine.detect import detections_to_all_boxes
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+
+    dev = torch.device("cuda")
+    net, backbone = TRAINVAL_NET
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(repo, "output"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="trainval_path_", dir=os.path.join(repo, "output"))
+    prev_root, cwd = os.environ.get("RLOD_DATA_DIR"), os.getcwd()
+    try:
+        classes = tuple(f"category{i:02d}" for i in range(1, NUM_CLASSES))
+        splits = {"train": (TRAINVAL_IMAGES // 2, 1000), "valminusminival":
+                  (TRAINVAL_IMAGES // 2, 2000), "minival": (TRAINVAL_MINIVAL, 3000)}
+        files = {}
+        for split, (n, first) in splits.items():
+            path = make_coco_dataset(root, num_images=n, split=split,
+                                     image_size=TRAINVAL_IMAGE_SIZE,
+                                     classes=classes, seed=3, first_id=first)
+            with open(path) as f:
+                files[split] = {im["file_name"] for im in json.load(f)["images"]}
+        check(not files["valminusminival"] & files["minival"],
+              "the two val splits' image files collide")
+        os.environ["RLOD_DATA_DIR"] = root
+        save_dir = os.path.join(root, "models")
+
+        # one of the CLI's own batches at each batch size (epoch 1's first),
+        # and the flagship's weights with pretrained-like BN statistics, for
+        # --pretrained
+        cfg = build_config("coco", TRAINVAL_SET)
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, roidb, ratio_list, ratio_index = combined_roidb(
+                trainval_net.DATASET_MAP["coco"][0], training=True, use_flipped=True)
+
+        def cli_batch(bs: int) -> dict:
+            loader = RoiBatchLoader(roidb, ratio_list, ratio_index, bs, scales=cfg.TRAIN.SCALES,
+                                    max_num_gt=cfg.MAX_NUM_GT_BOXES, seed=cfg.RNG_SEED)
+            loader.set_epoch(1)
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in loader.assemble_job(loader.batch_plan()[0]).items()}
+            check(tuple(b["data"].shape) == (bs, *TRAINVAL_BLOB[1:]),
+                  f"the CLI's batch is {tuple(b['data'].shape)}")
+            return b
+
+        batch = cli_batch(2)
+        calibrated = calibrated_state(det_state, cfg, backbone, batch)
+        pretrained = save_params(os.path.join(root, "pretrained.pth"), calibrated)
+        torch.cuda.empty_cache()
+        counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                    "roi_align_avg": roi_align_kernel.roi_align_avg,
+                    "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+        runs = {}
+        for bs in (2, 8):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for f in counters.values():
+                f.launches = 0
+            with contextlib.redirect_stdout(io.StringIO()):
+                result = trainval_net.main(
+                    ["--dataset", "coco", "--net", net, "--bs", str(bs), "--epochs", "2",
+                     "--lr", "0.01", "--nw", "4", "--s", str(bs), "--save_dir", save_dir,
+                     "--pretrained", pretrained, "--set", *TRAINVAL_SET])
+            peak = torch.cuda.max_memory_allocated()
+            moved = {k: f.launches for k, f in counters.items()}
+            steps = result["step"]
+            check(steps == 2 * (2 * TRAINVAL_IMAGES // bs) and len(result["checkpoints"]) == 2,
+                  f"trainval batch {bs}: {steps} steps, {result['checkpoints']}")
+            check(all(n >= (3 if k == "layer1" else 1) * steps for k, n in moved.items()),
+                  f"trainval batch {bs}: a kernel launched less than once a step: {moved}")
+            ck = read_checkpoint(result["checkpoints"][-1])
+            check(ck["step"] == steps and ck["epoch"] == 2 and ck["pooling_mode"] == "align"
+                  and all(torch.isfinite(v).all() for v in ck["model"].values()),
+                  f"trainval batch {bs}: checkpoint step {ck['step']}, epoch {ck['epoch']}")
+            runs[bs] = result, moved, peak
+            print(loop_rates(f"train loop batch {bs}", result["epochs"][1], peak)
+                  + f"; launches over {steps} steps {moved}", flush=True)
+        ckpt = runs[2][0]["checkpoints"][-1]
+
+        # the kernels at the batch-8 run's shapes, on its epoch-2 weights
+        model = FasterRCNN(NUM_CLASSES, backbone, cfg, device=dev)
+        load_checkpoint(runs[8][0]["checkpoints"][-1], model)
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        errs = cli_kernel_checks(model, cli_batch(8), flush)
+        del flush
+        for path in runs[8][0]["checkpoints"]:
+            os.remove(path)
+
+        # one CLI batch-2 batch, one step with the kernels against the same
+        # step with their plain versions (train_path's bounds), from the
+        # flagship's own weights: 131 of the 256 rois foreground. Its
+        # proposals overlap the gt boxes, so the plain run takes the kernel
+        # run's (rounding reorders their scores); printed with that alone,
+        # then with the kernel run's ReLU gates too (each replayed gate's
+        # input within TIE_SIZE_TOL of 0) and held. In f32 the plain
+        # versions' own rounding moves the updates by 1.2e-3 of their
+        # largest here (on an H100), the kernels' by 1e-5, so the kernel
+        # run's updates are held against the step in f64. Printed too, not
+        # held: the comparison's floor with no kernel (the input moved one
+        # f32 step) here and at the weights the CLI wrote, where one f32
+        # step of a weight is ~2e-3 of its leaf's largest update
+        step_vs_plain(model, batch, det_state, torch.float32, backbone, same_proposals=True,
+                      hold=False)
+        failed = []
+        for dtype in (torch.float32, torch.bfloat16):
+            broke, metrics = step_vs_plain(model, batch, det_state, dtype, backbone,
+                                           same_proposals=True, gates=True,
+                                           exact=dtype == torch.float32)
+            failed += broke
+            if metrics["fg_cnt"] < CLI_MIN_FG:
+                failed.append(f"{dtype}: {int(metrics['fg_cnt'])} foreground rois sampled, "
+                              f"under {CLI_MIN_FG}")
+        trained = read_checkpoint(ckpt)["model"]
+        for state, kw in ((det_state, {"nudge": True}), (trained, {"exact": True}),
+                          (trained, {"nudge": True})):
+            step_vs_plain(model, batch, state, torch.float32, backbone, same_proposals=True,
+                          gates=True, hold=False, **kw)
+        model.dtype = model.base.dtype = torch.bfloat16
+        check(not failed, "CLI batch: " + "; ".join(failed))
+
+        # the checkpoint: its bytes, and a load into fresh objects on the card
+        opt, sched, _ = build_optimizer(model, backbone, 0.01)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = load_checkpoint(ckpt, model, opt, sched)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(meta["step"] == runs[2][0]["step"] and sched.last_epoch == meta["step"],
+              f"checkpoint load: meta {meta}, schedule count {sched.last_epoch}")
+        print(f"checkpoint: {os.path.getsize(ckpt)} bytes (params, frozen-BN statistics, "
+              f"momentum), save {runs[2][0]['epochs'][1]['save_ms']:.1f} ms, load into a fresh "
+              f"model, SGD and schedule on the card {load_ms:.1f} ms", flush=True)
+        del model, opt, sched, batch
+        torch.cuda.empty_cache()
+
+        # resume equality: fresh processes under deterministic algorithms
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res = resume_validate.main(
+                ["--net", net, "--dataset", "coco", "--images", "8", "--image_size",
+                 *map(str, TRAINVAL_IMAGE_SIZE), "--epochs", "2", "--bs", "2",
+                 "--pretrained", pretrained,
+                 "--work_dir", os.path.join(root, "resume"), "--set", *TRAINVAL_SET])
+        print(text.getvalue().strip().splitlines()[-1], flush=True)
+        check(res["ok"], f"resume: {res}")
+
+        # test_net --load_dir on the epoch-2 checkpoint, in the data root
+        os.chdir(root)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            test_net.main(["--dataset", "coco", "--net", net, "--load_dir", save_dir,
+                           "--s", "2", "--checkepoch", "2", "--set", *TEST_SET])
+        out = text.getvalue()
+        check(f"(pooling_mode {ck['pooling_mode']})" in out, "test_net: pooling_mode not restored")
+        table = [l for l in out.splitlines() if "Average Precision" in l or "Average Recall" in l]
+        check(len(table) == 12, f"test_net: no COCOeval table in {out[-2000:]}")
+        print("test_net --load_dir (epoch 2, batch 2 run):\n" + "\n".join(table), flush=True)
+        with open(os.path.join(root, "output", net, "coco_2014_minival",
+                               "detections.pkl"), "rb") as f:
+            all_boxes = pickle.load(f)
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, test_roidb, _, _ = combined_roidb("coco_2014_minival", training=False,
+                                                 use_flipped=False)
+        test_cfg = build_config("coco", TEST_SET)
+        model = FasterRCNN(NUM_CLASSES, backbone, test_cfg, device=dev)
+        load_checkpoint(ckpt, model)
+        want = detections_to_all_boxes(
+            [Detector(model, test_cfg, dev).detect(read_image_bgr(test_roidb[0]["image"]))],
+            NUM_CLASSES)
+        same = all(np.array_equal(all_boxes[j][0], want[j][0]) for j in range(NUM_CLASSES))
+        n_det = sum(len(want[j][0]) for j in range(NUM_CLASSES))
+        print(f"test_net --load_dir image 0 vs Detector.detect on the checkpoint's weights: "
+              f"{'equal to the bit' if same else 'differ'} ({n_det} detections)", flush=True)
+        check(same and n_det > 0, "test_net's detections differ from Detector.detect's")
+        del model
+
+        # demo over 3 of the minival images
+        demo_in, demo_out = os.path.join(root, "demo_in"), os.path.join(root, "demo_out")
+        os.makedirs(demo_in)
+        for e in test_roidb[:3]:
+            shutil.copy(e["image"], demo_in)
+        with contextlib.redirect_stdout(io.StringIO()):
+            dets = demo.main(["--net", net, "--image_dir", demo_in, "--out_dir", demo_out,
+                              "--load_name", ckpt, "--set", "ANCHOR_SCALES", "(4,8,16,32)",
+                              *TEST_SET])
+        drawn = sorted(os.listdir(demo_out))
+        check(len(drawn) == 3 and all(n.endswith("_det.jpg") for n in drawn)
+              and all(os.path.getsize(os.path.join(demo_out, n)) > 0 for n in drawn),
+              f"demo wrote {drawn}")
+        print(f"demo: {drawn}, {[int(d[3].sum()) for d in dets.values()]} valid detections",
+              flush=True)
+        return runs[2][1], errs
+    finally:
+        os.chdir(cwd)
+        if prev_root is None:
+            os.environ.pop("RLOD_DATA_DIR", None)
+        else:
+            os.environ["RLOD_DATA_DIR"] = prev_root
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def roi_mode_vs_cpu(label, op, feat: torch.Tensor, rois: torch.Tensor) -> None:
@@ -1835,27 +2230,39 @@ def main() -> None:
     del vgg_state
     torch.cuda.empty_cache()
 
-    # 7. the flagship in the pool and crop modes
+    # 7. the training CLI: train, checkpoint, resume, test_net, demo
+    t0 = time.perf_counter()
+    cli_launches, cli_errs = trainval_path(det_state)
+    print(f"trainval phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # 8. the flagship in the pool and crop modes
     mode_times = roi_modes_path(det_state, images)
 
-    # 8. the kernels line: launches over both detectors' requests, over the
-    # RL path's requests and train steps for the residual stage, and over
-    # both detectors' train steps (block 1, RoIAlignAvg and its backward)
+    # 9. the kernels line: launches over both detectors' requests, over the
+    # RL path's requests and train steps for the residual stage, over both
+    # detectors' train steps (block 1, RoIAlignAvg and its backward) and
+    # over the training CLI's batch-2 steps
     roi_launches = (launches["roi_align_avg"] + eval_launches["roi_align_avg"]
-                    + vgg_launches["roi_align_avg"] + vgg_train_launches["roi_align_avg"])
+                    + vgg_launches["roi_align_avg"] + vgg_train_launches["roi_align_avg"]
+                    + cli_launches["roi_align_avg"])
     for k, e in eval_errs.items():                # the largest error over both shapes
         results[k]["err"] = tuple(map(max, results[k]["err"], e))
     results["vgg_block1"] = vgg_results["vgg_block1"]
     results["res_stage"] = rl_results["res_stage"]
     roi_rl = rl_results.pop("roi_align_avg C=1024 R=64")
     results["roi_align_avg_bwd"] = train_results["roi_align_avg_bwd"]
+    for k, e in cli_errs.items():                 # and at the training CLI's batch 8
+        results[k]["err"] = tuple(map(max, results[k]["err"], e))
     bwd_steady = train_results["roi_align_avg_bwd steady"]
-    launches = dict(launches, stem=launches["stem"] + eval_launches["stem"],
-                    layer1=launches["layer1"] + eval_launches["layer1"],
+    launches = dict(launches,
+                    stem=launches["stem"] + eval_launches["stem"] + cli_launches["stem"],
+                    layer1=launches["layer1"] + eval_launches["layer1"] + cli_launches["layer1"],
                     roi_align_avg=roi_launches, res_stage=rl_launches["res_stage"],
                     vgg_block1=vgg_launches["vgg_block1"] + vgg_train_launches["vgg_block1"],
                     roi_align_avg_bwd=(train_launches["roi_align_avg_bwd"]
-                                       + vgg_train_launches["roi_align_avg_bwd"]))
+                                       + vgg_train_launches["roi_align_avg_bwd"]
+                                       + cli_launches["roi_align_avg_bwd"]))
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
                "layer1": ("csrc/layer1.cu", "rlobjectdetection_tpu/ops/layer1_pallas.py:317"),
                "roi_align_avg": ("csrc/roi_align.cu",
@@ -1867,12 +2274,15 @@ def main() -> None:
                "roi_align_avg_bwd": ("csrc/roi_align.cu",
                                      "rlobjectdetection_tpu/ops/roi_align_vjp.py:39 (XLA)")}
     in_eval = f"the eval loop's {EVAL_IMAGES} images at batch 1 and at batch 2"
-    where = {"stem": f"in 3 requests and {in_eval}", "layer1": f"in 3 requests and {in_eval}",
-             "roi_align_avg": f"in 6 requests, {in_eval} and {TRAIN_STEPS} vgg16 train steps",
+    in_cli = f"the training CLI's {2 * TRAINVAL_IMAGES} steps at batch 2"
+    where = {"stem": f"in 3 requests, {in_eval} and {in_cli}",
+             "layer1": f"in 3 requests, {in_eval} and {in_cli}",
+             "roi_align_avg": f"in 6 requests, {in_eval}, {TRAIN_STEPS} vgg16 train steps "
+                              f"and {in_cli}",
              "vgg_block1": f"in 3 vgg16 requests and {TRAIN_STEPS} vgg16 train steps",
              "res_stage": "in 3 RL requests and 3 RL train steps (layer2 + layer3)",
              "roi_align_avg_bwd": f"in {TRAIN_STEPS} resnet101 and {TRAIN_STEPS} vgg16 "
-                                  f"train steps"}
+                                  f"train steps and {in_cli}"}
     kernels = []
     for name, r in results.items():
         report(name, r, f"{launches[name]} {where.get(name, 'in 3 requests')}",
@@ -1893,7 +2303,8 @@ def main() -> None:
         name = label.split()[0]
         report(name, r, f"{vgg_train_launches[name]} in {TRAIN_STEPS} vgg16 train steps", label)
     print(f"detector train path launches over {TRAIN_STEPS} steps: {train_launches}; vgg16 "
-          f"train path: {vgg_train_launches}", flush=True)
+          f"train path: {vgg_train_launches}; training CLI at batch 2: {cli_launches}",
+          flush=True)
     print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -89,8 +89,11 @@ def make_voc_devkit(root: str, num_images: int = 8, year: str = "2007",
 def make_coco_dataset(root: str, num_images: int = 8, split: str = "minival",
                       year: str = "2014", image_size=(240, 320),
                       classes=("widget", "gadget", "gizmo"), seed: int = 3,
-                      crowd_fraction: float = 0.0):
-    """Create data/coco/{annotations/instances_<split><year>.json, images/...}."""
+                      crowd_fraction: float = 0.0, first_id: int = 1000):
+    """Create data/coco/{annotations/instances_<split><year>.json, images/...}.
+    Image ids (and file names) run from `first_id`: minival and
+    valminusminival share the val image folder, so two such splits need
+    ranges that do not meet."""
     h, w = image_size
     rng = np.random.RandomState(seed)
     data_name = {"minival": "val", "valminusminival": "val"}.get(split, split) + year
@@ -105,7 +108,7 @@ def make_coco_dataset(root: str, num_images: int = 8, split: str = "minival",
 
     ann_id = 1
     for i in range(num_images):
-        img_id = 1000 + i
+        img_id = first_id + i
         n = rng.randint(1, 4)
         boxes = _rand_boxes(rng, n, h, w)
         cls_ids = rng.randint(0, len(classes), size=n)

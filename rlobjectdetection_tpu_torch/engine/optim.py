@@ -52,6 +52,7 @@ def _label_of(keys: tuple, backbone: str, fixed_blocks: int) -> str:
         elif backbone.startswith("resnet"):
             if not resnet_param_trainable(sub, fixed_blocks=fixed_blocks):
                 return "frozen"
+        # `tiny` (the test backbone): nothing frozen
     if any(k.startswith("bn") or k.endswith("_bn") for k in keys):
         return "frozen"
     if keys and keys[-1] in ("mean", "var"):
@@ -64,6 +65,14 @@ def param_labels(model: nn.Module, backbone: str, fixed_blocks: int = 1) -> dict
     `model.named_parameters()`, by the JAX package's rules."""
     return {name: _label_of(tuple(name.split(".")), backbone, fixed_blocks)
             for name, _ in model.named_parameters()}
+
+
+def count_trainable(labels: dict[str, str]) -> dict[str, int]:
+    """How many tensors carry each label."""
+    counts = {"weight": 0, "bias": 0, "frozen": 0}
+    for label in labels.values():
+        counts[label] += 1
+    return counts
 
 
 def make_lr_schedule(base_lr: float, decay_step_iters: int, gamma: float = 0.1):

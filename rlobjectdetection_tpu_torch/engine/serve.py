@@ -18,8 +18,9 @@ import time
 import numpy as np
 import torch
 
-from ..config import DATASET_OVERRIDES, Config, cfg_from_list, cfg_update
-from ..data.blob import PIXEL_MEANS_BGR, prep_im_for_blob, read_image_bgr
+from ..config import (DATASET_OVERRIDES, LS_OVERRIDES, Config, cfg_from_file, cfg_from_list,
+                      cfg_update)
+from ..data.blob import PIXEL_MEANS_BGR, pad_shape, prep_im_for_blob, read_image_bgr
 from ..data.minibatch import im_list_to_blob
 from ..device import resolve_device
 from ..models import FasterRCNN
@@ -27,9 +28,9 @@ from .checkpoint import load_net_npz
 from .detect import postprocess_detections
 
 NUM_CLASSES = {"pascal_voc": 21, "pascal_voc_0712": 21, "coco": 81}
-# --net → FasterRCNN backbone, as tools/demo.py maps it
+# --net → FasterRCNN backbone, as tools/demo.py maps it (`tiny`: the test backbone)
 BACKBONES = {"vgg16": "vgg16", "res50": "resnet50", "res101": "resnet101",
-             "res152": "resnet152"}
+             "res152": "resnet152", "tiny": "tiny"}
 
 
 class Detector:
@@ -37,17 +38,26 @@ class Detector:
     valid `[M]`) as numpy, M = cfg.TEST.MAX_DETS_PER_IMAGE, boxes in the
     image's own coordinates."""
 
-    def __init__(self, model, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, model, cfg: Config, device: str | torch.device = "cuda",
+                 pad_to: tuple[int, int] | None = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
+        self.pad_to = None if pad_to is None else pad_shape(*pad_to)
 
     def blob(self, im_bgr: np.ndarray):
         """Mean-subtracted, resized, 32-padded `[1, H, W, 3]` blob and its
-        im_info `[1, 3]` (h, w, scale) as numpy."""
+        im_info `[1, 3]` (h, w, scale) as numpy. With `pad_to` (snapped up
+        to multiples of 32) the blob is that canvas wherever the image fits
+        in it."""
         im, im_scale = prep_im_for_blob(im_bgr, PIXEL_MEANS_BGR, self.cfg.TEST.SCALES[0])
         im_info = np.array([[im.shape[0], im.shape[1], im_scale]], dtype=np.float32)
-        return im_list_to_blob([im]), im_info
+        blob = im_list_to_blob([im])
+        if self.pad_to is not None and all(p >= s for p, s in zip(self.pad_to, blob.shape[1:3])):
+            canvas = np.zeros((1, *self.pad_to, 3), dtype=np.float32)
+            canvas[0, :im.shape[0], :im.shape[1]] = im
+            blob = canvas
+        return blob, im_info
 
     @torch.inference_mode()
     def detect(self, im_bgr: np.ndarray):
@@ -63,13 +73,29 @@ class Detector:
         return tuple(t.cpu().numpy() for t in dets)
 
 
-def build_config(dataset: str, set_cfgs=None) -> Config:
-    """Config() + the dataset's anchors (none for a name without overrides,
-    such as an imdb name) + the fused kernels on + `--set`. VGG-16 reads
-    CONV1_FUSED (its block-1 kernel) and ignores LAYER1_FUSED."""
-    cfg = cfg_update(Config(), dict(DATASET_OVERRIDES.get(dataset, {}),
-                                    CONV1_FUSED=True, LAYER1_FUSED=True))
-    return cfg_from_list(cfg, set_cfgs) if set_cfgs else cfg
+def build_config(dataset: str | None = None, set_cfgs=None, *, large_scale: bool = False,
+                 cfg_file: str | None = None, pooling_mode: str | None = None) -> Config:
+    """The config of every entry point: Config() with the fused stem and
+    layer1 kernels on, then in the JAX trainer's order the dataset's
+    overrides (none for a name without any, such as an imdb name), `--ls`,
+    `--cfg`, `--set` and `--pooling_mode`. Layer1's kernel stays on only
+    with the stem's and where RESNET.FIXED_BLOCKS >= 1: it reads the stem
+    kernel's output and is forward-only. VGG-16 reads CONV1_FUSED (its
+    block-1 kernel) and ignores LAYER1_FUSED."""
+    cfg = Config(CONV1_FUSED=True, LAYER1_FUSED=True)
+    if dataset in DATASET_OVERRIDES:
+        cfg = cfg_update(cfg, DATASET_OVERRIDES[dataset])
+    if large_scale:
+        cfg = cfg_update(cfg, LS_OVERRIDES)
+    if cfg_file:
+        cfg = cfg_from_file(cfg, cfg_file)
+    if set_cfgs:
+        cfg = cfg_from_list(cfg, set_cfgs)
+    if pooling_mode:
+        cfg = cfg_update(cfg, {"POOLING_MODE": pooling_mode})
+    if cfg.LAYER1_FUSED and not (cfg.CONV1_FUSED and cfg.RESNET.FIXED_BLOCKS >= 1):
+        cfg = cfg_update(cfg, {"LAYER1_FUSED": False})
+    return cfg
 
 
 def main(argv=None) -> None:

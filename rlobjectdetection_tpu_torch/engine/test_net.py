@@ -2,14 +2,20 @@
 package's `tools/test_net.py`).
 
     python -m rlobjectdetection_tpu_torch.engine.test_net --dataset coco \
-        [--net res101|res50|vgg16] [--load_npz P] [--batch N] [--device cuda] \
+        [--net res101|res50|vgg16|tiny] [--load_dir D [--s S] [--checkepoch E]] \
+        [--weights F] [--load_npz P] [--batch N] [--device cuda] \
         [--cfg F] [--ls] [--cag] [--vis [--vis_max K]] [--set KEY VALUE ...]
 
 builds the test roidb (`$RLOD_DATA_DIR`, as the JAX package reads it), runs
-the detector over every image (seeded random weights, or a `save_net_npz`
-dump of the JAX package), writes `output/<net>/<imdb>/detections.pkl` and
-scores it with the imdb's `evaluate_detections` (COCOeval for COCO,
-`voc_eval` for VOC).
+the detector over every image, writes `output/<net>/<imdb>/detections.pkl`
+and scores it with the imdb's `evaluate_detections` (COCOeval for COCO,
+`voc_eval` for VOC). The weights: a `trainval_net` checkpoint
+(`<load_dir>/<net>/<dataset>/faster_rcnn_<s>_<checkepoch>.pth`, whose
+pooling_mode replaces the config's; any of `--load_dir`, `--s` /
+`--checksession` and `--checkepoch` asks for one, the others default to
+`models`, 1 and 1), converted weights merged into the seeded ones
+(`--weights`, `convert_torch_weights`' output), a `save_net_npz` dump of the
+JAX package (`--load_npz`), or else the seeded random weights.
 
 At `--batch 1` the loop runs over `device_prefetch`: batches are assembled
 on worker threads and copied to the card ahead of the forward. At
@@ -30,13 +36,15 @@ import time
 import numpy as np
 import torch
 
-from ..config import LS_OVERRIDES, Config, cfg_from_file, cfg_from_list, cfg_update
+from ..config import Config, cfg_update
 from ..data.imdb import combined_roidb
 from ..data.loader import RoiBatchLoader, eval_bucket_plan
 from ..data.prefetch import AsyncLoader, device_prefetch, to_device
 from ..device import resolve_device
 from ..models import FasterRCNN
-from .checkpoint import load_net_npz
+from .checkpoint import (checkpoint_path, load_checkpoint, load_net_npz, load_params,
+                         read_checkpoint)
+from .convert_torch_weights import merge_pretrained
 from .detect import detections_to_all_boxes, postprocess_detections
 from .serve import BACKBONES, build_config
 
@@ -51,14 +59,17 @@ DATASET_MAP = {
 ASSEMBLY_THREADS = 4
 # flags of tools/test_net.py whose counterparts wait for a later part of the
 # port: each exits with the ROADMAP item that brings it
-WAITING_FLAGS = {
-    "--packed_input": "ROADMAP §1 item 17b (data/packed.py)",
-    "--load_dir": "ROADMAP §1 item 18 (torch checkpoints)",
-    "--s": "ROADMAP §1 item 18 (torch checkpoints)",
-    "--checksession": "ROADMAP §1 item 18 (torch checkpoints)",
-    "--checkepoch": "ROADMAP §1 item 18 (torch checkpoints)",
-    "--weights": "ROADMAP §1 item 18 (convert_torch_weights)",
-}
+WAITING_FLAGS = {"--packed_input": "it waits for ROADMAP §1 item 17b (data/packed.py)"}
+
+
+def refuse_waiting_flags(parser, argv, waiting: dict, prog: str) -> None:
+    """Exit with code 2 and the flag's reason on a flag of `waiting` given
+    before `--set` (whose REMAINDER would swallow it)."""
+    head = argv[:argv.index("--set")] if "--set" in argv else argv
+    for flag in head:
+        reason = waiting.get(flag.split("=", 1)[0])
+        if reason is not None:
+            parser.exit(2, f"{prog}: {flag} is not ported: {reason}\n")
 
 
 def parse_args(argv=None):
@@ -74,27 +85,17 @@ def parse_args(argv=None):
                    help="cap on --vis overlays (0 = all images)")
     p.add_argument("--batch", default=1, type=int,
                    help="eval batch size; >1 groups images by padded-shape bucket")
+    p.add_argument("--load_dir", default=None,
+                   help="trainval_net's --save_dir (models where a checkpoint is asked for)")
+    p.add_argument("--s", "--checksession", dest="session", default=None, type=int)
+    p.add_argument("--checkepoch", default=None, type=int)
+    p.add_argument("--weights", default=None,
+                   help="converted weights (convert_torch_weights output)")
     p.add_argument("--load_npz", default=None, help="save_net_npz dump of the JAX package")
     p.add_argument("--device", default="cuda")
     argv = sys.argv[1:] if argv is None else list(argv)
-    # before --set, whose REMAINDER would swallow them
-    head = argv[:argv.index("--set")] if "--set" in argv else argv
-    for flag in head:
-        item = WAITING_FLAGS.get(flag.split("=", 1)[0])
-        if item is not None:
-            p.exit(2, f"test_net: {flag} is not ported yet: it waits for {item}\n")
+    refuse_waiting_flags(p, argv, WAITING_FLAGS, "test_net")
     return p.parse_args(argv)
-
-
-def eval_config(dataset: str, cfg_file=None, large_scale=False, set_cfgs=None) -> Config:
-    """The dataset's anchors and the fused kernels on (`serve.build_config`),
-    then `--ls`, `--cfg` and `--set`, in that order."""
-    cfg = build_config(dataset)
-    if large_scale:
-        cfg = cfg_update(cfg, LS_OVERRIDES)
-    if cfg_file:
-        cfg = cfg_from_file(cfg, cfg_file)
-    return cfg_from_list(cfg, set_cfgs) if set_cfgs else cfg
 
 
 class EvalJobs:
@@ -251,19 +252,32 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.batch < 1:
         sys.exit("--batch must be >= 1")
-    cfg = eval_config(args.dataset, args.cfg_file, args.large_scale, args.set_cfgs)
+    cfg = build_config(args.dataset, args.set_cfgs, large_scale=args.large_scale,
+                       cfg_file=args.cfg_file)
 
     imdb_name = DATASET_MAP.get(args.dataset, args.dataset)
     imdb_obj, roidb, ratio_list, ratio_index = combined_roidb(
         imdb_name, training=False, use_flipped=False)
     print(f"{len(roidb)} images for evaluation")
 
+    payload = None
+    if any(v is not None for v in (args.load_dir, args.session, args.checkepoch)):
+        path = checkpoint_path(args.load_dir or "models", args.net, args.dataset,
+                               args.session or 1, args.checkepoch or 1)
+        payload = read_checkpoint(path)
+        if payload.get("pooling_mode"):
+            cfg = cfg_update(cfg, {"POOLING_MODE": payload["pooling_mode"]})
+        print(f"load checkpoint {path} (pooling_mode {cfg.POOLING_MODE})")
     model = FasterRCNN(imdb_obj.num_classes, BACKBONES[args.net], cfg,
                        class_agnostic=args.class_agnostic, device=dev)
-    if args.load_npz:
+    if payload is not None:
+        load_checkpoint(payload, model)
+    elif args.weights:
+        model.load_state_dict(merge_pretrained(model.state_dict(), load_params(args.weights)))
+    elif args.load_npz:
         load_net_npz(args.load_npz, model)
     else:
-        print("no --load_npz: evaluating seeded random weights")
+        print("no checkpoint, --weights or --load_npz: evaluating seeded random weights")
 
     dets, stats = detect_loop(model, cfg, roidb, ratio_list, ratio_index, args.batch)
     print_rates(stats)

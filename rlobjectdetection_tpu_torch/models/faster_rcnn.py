@@ -30,17 +30,48 @@ from ..device import compute_dtype, resolve_device
 from ..ops.roi_align_kernel import roi_align_avg
 from ..ops.roi_crop import roi_crop
 from ..ops.roi_pool import roi_pool
-from .backbones.resnet import Conv2d, Dense, ResNetBase, ResNetHead
+from .backbones.resnet import (Conv2d, Dense, ResNetBase, ResNetHead, conv, nchw_to_nhwc,
+                               nhwc_to_nchw)
 from .backbones.vgg import VGGBase, VGGHead
 from .losses import smooth_l1_loss, softmax_cross_entropy
 from .rpn import RPNHead, proposal_layer, rpn_fg_probs
 from .targets import anchor_target, proposal_target, uniform_source
 
 
+class TinyBase(nn.Module):
+    """A test backbone: x / 128, then four 3×3 stride-2 convs of 64 channels,
+    each with a ReLU (`base/stem{i}`): `[B, H, W, 3]` → `[B, H/16, W/16, 64]`
+    in the compute dtype."""
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        for i in range(4):
+            setattr(self, f"stem{i}", conv(3 if i == 0 else 64, 64, 3, stride=2, bias=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = nhwc_to_nchw((x * (1.0 / 128.0)).to(self.dtype))
+        for i in range(4):
+            x = torch.relu(getattr(self, f"stem{i}")(x))
+        return nchw_to_nhwc(x)
+
+
+class TinyHead(nn.Module):
+    """The test backbone's head: the mean over the pooled cells, then a
+    Dense layer of 256 (`head/fc`) and a ReLU."""
+
+    def __init__(self, in_ch: int = 64, out_ch: int = 256):
+        super().__init__()
+        self.fc = Dense(in_ch, out_ch)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.fc(pooled.mean(dim=(1, 2))))
+
+
 class FasterRCNN(nn.Module):
-    """`FasterRCNN(num_classes, "resnet101" | "vgg16", cfg)`; weights are
-    made from `seed` (the JAX model's initialisers, numbers from a
-    torch.Generator)."""
+    """`FasterRCNN(num_classes, "resnet101" | "vgg16" | "tiny", cfg)`;
+    weights are made from `seed` (the JAX model's initialisers, numbers from
+    a torch.Generator). `tiny` is the JAX package's test backbone."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet101",
                  cfg: Config = Config(), class_agnostic: bool = False, *,
@@ -64,6 +95,9 @@ class FasterRCNN(nn.Module):
                                    frozen_stages=cfg.RESNET.FIXED_BLOCKS)
             self.head = ResNetHead(layers)
             base_ch, head_ch = 1024, 2048
+        elif backbone == "tiny":
+            self.base, self.head = TinyBase(self.dtype), TinyHead()
+            base_ch, head_ch = 64, 256
         else:
             raise ValueError(f"unknown backbone {backbone!r}")
         self.rpn = RPNHead(self.num_anchors, base_ch)

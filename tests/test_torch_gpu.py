@@ -648,3 +648,107 @@ def test_eval_loop_gives_detector_detect_on_each_image(cuda, tmp_path, monkeypat
         for got, w in zip(dets[i], want):
             assert got.dtype == w.dtype
             np.testing.assert_array_equal(got, w)
+
+
+GPU_TINY_SET = ["TRAIN.RPN_PRE_NMS_TOP_N", "256", "TRAIN.RPN_POST_NMS_TOP_N", "64",
+                "TRAIN.BATCH_SIZE", "32", "TRAIN.SCALES", "[128]", "TRAIN.USE_FLIPPED", "False",
+                "TEST.SCALES", "[128]", "ANCHOR_SCALES", "(2,3,5)", "DTYPE", "bfloat16"]
+
+
+@pytest.fixture
+def voc_root(tmp_path, monkeypatch):
+    from rlobjectdetection_tpu_torch.data.synthetic import make_voc_devkit
+
+    make_voc_devkit(str(tmp_path / "voc"), num_images=4, image_size=(128, 160),
+                    classes=("aeroplane", "bicycle", "bird"))
+    monkeypatch.setenv("RLOD_DATA_DIR", str(tmp_path / "voc"))
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["tiny", "res50"])
+def test_trainval_cli_steps_on_the_card(cuda, voc_root, net):
+    """Two CLI steps (one epoch of 4 images at batch 2) on the card, bf16:
+    a finite checkpoint at step 2, and each kernel of the path launched at
+    least once a step (layer1 three times)."""
+    from rlobjectdetection_tpu_torch.engine import trainval_net
+    from rlobjectdetection_tpu_torch.engine.checkpoint import read_checkpoint
+
+    counters = {"roi_align_avg": roi_align_kernel.roi_align_avg,
+                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+    if net == "res50":
+        counters.update(stem=stem_kernel.fused_stem, layer1=layer1_kernel.fused_layer1)
+    before = {k: f.launches for k, f in counters.items()}
+    result = trainval_net.main(["--dataset", "pascal_voc", "--net", net, "--epochs", "1",
+                                "--bs", "2", "--nw", "2", "--save_dir", "models",
+                                "--set", *GPU_TINY_SET])
+    moved = {k: f.launches - before[k] for k, f in counters.items()}
+    assert result["step"] == 2
+    assert all(n >= (6 if k == "layer1" else 2) for k, n in moved.items()), moved
+    ck = read_checkpoint(result["checkpoints"][0])
+    assert ck["step"] == 2 and all(torch.isfinite(v).all() for v in ck["model"].values())
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A checkpoint of a card model loads into a fresh card model bit for
+    bit, and the stem and layer1 kernels, called before the load, pack
+    again and give the loaded weights' output."""
+    from rlobjectdetection_tpu_torch.config import Config
+    from rlobjectdetection_tpu_torch.engine import build_optimizer
+    from rlobjectdetection_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+
+    cfg = Config(DTYPE="bfloat16", CONV1_FUSED=True, LAYER1_FUSED=True)
+    src = FasterRCNN(21, "resnet50", cfg, device=cuda, seed=9)
+    with torch.no_grad():
+        _randomize_bn(src, np.random.RandomState(4))
+    opt, sched, _ = build_optimizer(src, "resnet50", 0.01)
+    path = str(tmp_path / "c.pth")
+    save_checkpoint(path, src, opt, sched, epoch=1, step=5)
+    model = FasterRCNN(21, "resnet50", cfg, device=cuda, seed=3)
+    opt2, sched2, _ = build_optimizer(model, "resnet50", 0.01)
+    x = torch.from_numpy(np.random.RandomState(1).randn(1, 128, 160, 3).astype(np.float32)
+                         * 30).to(cuda)
+    with torch.no_grad():
+        model.base(x, fwd_only=True)
+        packs = cached_pack.packs
+        meta = load_checkpoint(path, model, opt2, sched2)
+        got = model.base(x, fwd_only=True)
+        assert cached_pack.packs >= packs + 2
+        assert torch.equal(got, src.base(x, fwd_only=True))
+    assert meta["step"] == 5
+    want = src.state_dict()
+    assert all(torch.equal(v, want[k]) and v.is_cuda for k, v in model.state_dict().items())
+
+
+@pytest.mark.gpu
+def test_demo_on_one_image_on_the_card(cuda, voc_root):
+    """`demo` with a card checkpoint writes the image's `_det.jpg`, and its
+    detections are `Detector.detect`'s."""
+    import shutil
+
+    from rlobjectdetection_tpu_torch.data.blob import read_image_bgr
+    from rlobjectdetection_tpu_torch.engine import demo, trainval_net
+    from rlobjectdetection_tpu_torch.engine.checkpoint import load_checkpoint, read_checkpoint
+    from rlobjectdetection_tpu_torch.engine.serve import Detector
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+
+    ckpt = trainval_net.main(["--dataset", "pascal_voc", "--net", "res50", "--epochs", "1",
+                              "--bs", "2", "--nw", "0", "--save_dir", "models",
+                              "--set", *GPU_TINY_SET])["checkpoints"][0]
+    images = voc_root / "one"
+    images.mkdir()
+    shutil.copy(voc_root / "voc" / "VOCdevkit2007" / "VOC2007" / "JPEGImages" / "000000.jpg",
+                images)
+    dets = demo.main(["--net", "res50", "--image_dir", str(images), "--load_name", ckpt,
+                      "--set", *GPU_TINY_SET])
+    assert (images / "000000_det.jpg").exists()
+    payload = read_checkpoint(ckpt)
+    model = FasterRCNN(21, "resnet50", demo.build_config(None, GPU_TINY_SET), device=cuda)
+    load_checkpoint(payload, model)
+    want = Detector(model, model.cfg, cuda).detect(read_image_bgr(str(images / "000000.jpg")))
+    for got, w in zip(dets["000000.jpg"], want):
+        np.testing.assert_array_equal(got, w)

@@ -16,7 +16,10 @@ identical devkit. Bounds: detections.pkl within rtol 1e-4, atol 1e-4
 (`test_torch_model.py`'s bound for the detector); the AP table within
 1e-6; `--batch 2` gives the `--batch 1` detections (rtol 1e-5, atol
 5e-5: f32 summation order). `detect_loop` at batch 2 hands each row's
-blob, im_info and detections to its own image, exactly.
+blob, im_info and detections to its own image, exactly. The same weights
+as a `trainval_net` checkpoint (`--load_dir`, `--s`, `--checksession`,
+`--checkepoch`) or as converted weights (`--weights`) give the `--load_npz`
+run's detections, exactly; `--packed_input` still exits, naming its item.
 """
 
 import os
@@ -170,7 +173,7 @@ def test_detect_loop_hands_each_row_to_its_image(setup):
         _, roidb, _, _ = combined_roidb("voc_2007_test", training=False, use_flipped=False)
     roidb = roidb[:3]
     ratio_list, ratio_index = rank_roidb_ratio(roidb)
-    cfg = test_net.eval_config("pascal_voc", set_cfgs=SET)
+    cfg = test_net.build_config("pascal_voc", SET)
     model = FasterRCNN(21, "resnet50", cfg, device="cpu")
     load_net_npz(setup["npz"], model)
     seen = []
@@ -196,10 +199,50 @@ def test_detect_loop_hands_each_row_to_its_image(setup):
             assert not data[1].any()
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("--load_dir", "item 18"), ("--checkepoch", "item 18"), ("--s", "item 18"),
-    ("--weights", "item 18"), ("--packed_input", "item 17b")])
+@pytest.mark.parametrize("flag,item", [("--packed_input", "item 17b")])
 def test_flags_not_ported_yet_exit_with_their_roadmap_item(flag, item, capsys):
     with pytest.raises(SystemExit) as e:
         test_net.main(["--dataset", "pascal_voc", flag, "x", "--device", "cpu"])
     assert e.value.code == 2 and item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,session,epoch", [
+    (["--load_dir", "elsewhere"], 1, 1), (["--s", "2"], 2, 1),
+    (["--checksession", "3"], 3, 1), (["--checkepoch", "4"], 1, 4), (["--weights"], None, None)])
+def test_checkpoint_flags_load_what_they_name(setup, cli_runs, tmp_path, flags, session, epoch):
+    """Each flag loads the file it names (`--load_dir` D, else `models`;
+    `--s` / `--checksession` S and `--checkepoch` E, else 1:
+    `D/res50/pascal_voc/faster_rcnn_S_E.pth`; `--weights` a converted state
+    dict merged into the seeded weights): the npz's weights, so the
+    `--load_npz` run's detections exactly; the same file elsewhere is not
+    found."""
+    from rlobjectdetection_tpu_torch.engine.checkpoint import (checkpoint_path, load_net_npz,
+                                                                save_checkpoint, save_params)
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+
+    cfg = test_net.build_config("pascal_voc", SET)
+    model = load_net_npz(setup["npz"], FasterRCNN(21, "resnet50", cfg, device="cpu"))
+    if session is None:
+        flags = flags + [save_params(str(tmp_path / "converted.pth"), model.state_dict())]
+    else:
+        load_dir = flags[1] if flags[0] == "--load_dir" else "models"
+        save_checkpoint(checkpoint_path(str(tmp_path / load_dir), "res50", "pascal_voc",
+                                        session, epoch), model)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        with data_dir(setup["proot"]):
+            test_net.main(["--dataset", "pascal_voc", "--net", "res50", "--device", "cpu",
+                           *flags, "--set", *SET])
+            if session is not None:
+                with pytest.raises(FileNotFoundError):
+                    test_net.main(["--dataset", "pascal_voc", "--net", "res50", "--device",
+                                   "cpu", *flags, "--checkepoch", "9", "--set", *SET])
+    finally:
+        os.chdir(cwd)
+    with open(tmp_path / "output" / "res50" / "voc_2007_test" / "detections.pkl", "rb") as f:
+        got = pickle.load(f)
+    want = cli_runs[1][0]
+    for j in range(21):
+        for i in range(4):
+            np.testing.assert_array_equal(got[j][i], want[j][i])
