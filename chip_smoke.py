@@ -58,6 +58,26 @@ layer2's and layer3's shapes, RoIAlignAvg at the refine's 64 rois, the
 whole trunk and the action values with the kernels against the plain
 modules.
 
+Then the RL CLI (`engine/trainval_rl.py`, called in process) on the
+`engine/rl_hw_validate.py` fixture made under `output/` (8 synthetic COCO
+images of 480×640, 80 categories; the detections are the gt shifted by
+(7, -5)): the ΔIoU dataset's build with its weight statistic timed; the
+flagship's weights with frozen-BN statistics from one of the CLI's
+batches (`calibrated_state`) as `--pretrained`; two epochs of ResNet-101
+at the CLI's defaults (800 / 1200, batch 2, f32) with 4 assembly threads,
+every logged loss finite, a checkpoint each epoch, the stem, layer1,
+stage and RoIAlignAvg kernels launched at least their count a step and
+packed no more than once each, epoch 2's rates and peak memory, the
+checkpoint's bytes and save and load times; `-e --resume` at the bf16 and
+the f32 wire (composed eval rates, Preck, the mAP before and after the
+moves, after at least before); the four kernels against their plain
+versions in f32 at one of its [2, 800, 1088, 3] batches and the whole
+trunk against the plain modules; the f32 trunk timed with the stage
+kernel, with cuDNN's layer2-3 (TF32 allowed, as the CLI runs) and without
+TF32; `engine/rl_resume_validate.py` at the same shapes in fresh processes
+under deterministic algorithms. It prints its seconds as `rl cli phase:
+N s`.
+
 Then the detector's train step (the flagship's weights, `bench.py`'s
 synthetic batch at 2 images, SGD at 0.01, bf16 compute): three steps with
 the launch counts of the stem, layer1 and both RoIAlignAvg kernels read over
@@ -108,7 +128,10 @@ detection, an eval loop whose detections leave `Detector.detect`'s, whose
 rows are not their images' or whose gt does not score AP 1.0, a training
 CLI run that writes a non-finite checkpoint, launches a kernel less than
 once a step, does not resume to the same tensors, or whose `test_net` or
-`demo` fails, a train step whose loss is not finite, that moves the frozen
+`demo` fails, an RL CLI run whose logged losses are not finite, whose
+checkpoint is not, whose moved boxes score a lower mAP than the unmoved
+ones or that does not resume to the same tensors, a train step whose
+loss is not finite, that moves the frozen
 trunk or leaves the head unchanged, a whole train step whose losses or
 updates leave their bounds, a pool or crop result on the card that leaves
 the CPU's, or a kernel the path did not launch. The
@@ -1225,6 +1248,240 @@ def rl_net(det_state: dict) -> tuple[dict, dict]:
     return results, launches
 
 
+RL_CLI_IMAGES = 8
+RL_CLI_IMAGE_SIZE = (480, 640)           # 800×1066 at the CLI's short side, 800×1088 blobs
+RL_CLI_BLOB = (2, 800, 1088, 3)
+RL_CLI_LAYERS = 101
+RL_CLI_SHORT, RL_CLI_MAX_SIZE = 800, 1200    # RLConfig's train and test sizes
+# host threads of the weight statistic and of batch assembly
+RL_CLI_STAT_WORKERS, RL_CLI_WORKERS = 8, 4
+
+
+def rl_cli_kernel_checks(model, data: torch.Tensor, rois: torch.Tensor) -> dict:
+    """The RL CLI's kernels against their plain versions in f32 (no TF32)
+    at its shapes: the stem and layer1 on a [2, 800, 1088, 3] batch, the
+    residual stage's layer2 and layer3 on their inputs, RoIAlignAvg on the
+    trunk's [2, 50, 68, 1024] features with the batch's rois, and the whole
+    trunk with its kernels against the plain modules. Returns each kernel's
+    (max abs, max rel)."""
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, res_stage_kernel, roi_align,
+                                                 roi_align_kernel, stem_kernel)
+
+    base, f32, label = model.base, torch.float32, f" (RL CLI, {tuple(data.shape)})"
+    errs = {}
+    with torch.no_grad(), full_f32():
+        bn = base.bn1
+        stem_w = (base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var)
+        x = stem_kernel.fused_stem(data, *stem_w, dtype=f32)
+        errs["stem"] = parity(f"stem{label}", f32, x,
+                              stem_kernel.stem_plain(data, *stem_w, dtype=f32), F32_TOL)
+        stem = x
+        x = layer1_kernel.fused_layer1(stem, base.layer1, dtype=f32)
+        errs["layer1"] = parity(f"layer1{label}", f32, x, layer1_kernel.layer1_plain(
+            stem, layer1_kernel.pack_layer1(base.layer1, f32), f32), F32_TOL)
+        errs["res_stage"] = (0.0, 0.0)
+        for name, layer in (("layer2", base.layer2), ("layer3", base.layer3)):
+            xs = x[:, ::2, ::2].contiguous()
+            x = res_stage_kernel.fused_res_stage(xs, layer, blocks=layer.blocks,
+                                                 width=layer.planes, dtype=f32)
+            want = res_stage_kernel.res_stage_plain(
+                xs, res_stage_kernel.pack_res_stage(layer, layer.blocks, layer.planes, f32), f32)
+            errs["res_stage"] = tuple(map(max, errs["res_stage"], parity(
+                f"res_stage {name}{label}", f32, x, want, RES_STAGE_TOL[f32])))
+        errs["roi_align_avg"] = parity(
+            f"roi_align_avg (RL CLI, C=1024 R={rois.shape[0]})", f32,
+            roi_align_kernel.roi_align_avg(x, rois), roi_align.roi_align_avg(x, rois), F32_TOL)
+        got = base(data)
+        with plain_modules(base):
+            want = base(data)
+        parity(f"rl cli base_feat{label} (kernels vs plain modules)", f32, got, want,
+               RL_BASE_FEAT_TOL[f32])
+    return errs
+
+
+def rl_cli_path(det_state: dict) -> tuple[dict, dict]:
+    """The RL CLI (`engine/trainval_rl.py`, called in process) on the
+    `rl_hw_validate` fixture made under `output/` (8 synthetic COCO images
+    of 480×640, 80 categories, detections the gt shifted by (7, -5)): the
+    dataset's build with its weight statistic; two epochs of ResNet-101 at
+    the CLI's defaults (800 / 1200, batch 2, f32) from the flagship's
+    calibrated weights with 4 assembly threads, its logged losses finite, a
+    checkpoint each epoch, epoch 2's rates, the checkpoint's bytes and
+    save and load times; `-e --resume` at both wires with the pre- and
+    post-move mAP; `engine/rl_resume_validate.py` at the same shapes in
+    fresh processes; the stem, layer1, stage and RoIAlignAvg kernels
+    against their plain versions in f32 at one of the CLI's batches, and
+    the f32 trunk timed with the stage kernel and with cuDNN's layer2-3.
+    Returns the launches over the training and eval runs and each kernel's
+    f32 error."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from rlobjectdetection_tpu_torch.config import RLConfig
+    from rlobjectdetection_tpu_torch.data.rl_coco import (COCODataLoader, COCODataset,
+                                                           COCOTransform)
+    from rlobjectdetection_tpu_torch.engine import (rl_hw_validate, rl_resume_validate,
+                                                    trainval_rl)
+    from rlobjectdetection_tpu_torch.engine.checkpoint import (load_checkpoint, read_checkpoint,
+                                                               save_params)
+    from rlobjectdetection_tpu_torch.engine.rl import make_rl_optimizer
+    from rlobjectdetection_tpu_torch.engine.serve import build_config
+    from rlobjectdetection_tpu_torch.models.rl import Action
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, res_stage_kernel,
+                                                 roi_align_kernel, stem_kernel)
+    from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+
+    dev = torch.device("cuda")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(repo, "output"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="rl_cli_", dir=os.path.join(repo, "output"))
+    try:
+        classes = tuple(f"category{i:02d}" for i in range(1, NUM_CLASSES))
+        ann, dt_file, img_dir = rl_hw_validate.build_fixture(root, RL_CLI_IMAGES,
+                                                             RL_CLI_IMAGE_SIZE, classes=classes)
+        cfg = RLConfig()
+        action = Action(list(cfg.act_delta), iou_thres=cfg.act_iou_thres, wtrans=cfg.act_wtrans)
+        t0 = time.perf_counter()
+        dataset = COCODataset(img_dir, ann, dt_file, action,
+                              transform_fn=COCOTransform(RL_CLI_SHORT, RL_CLI_MAX_SIZE),
+                              normalize_mean=cfg.normalize_mean, normalize_std=cfg.normalize_std,
+                              max_stat_dets=5000, stat_workers=RL_CLI_STAT_WORKERS)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        n_dets = sum(len(v) for v in dataset.dt_boxes.values())
+        print(f"rl cli dataset: {len(dataset)} images, {n_dets} detections x {action.num_acts} "
+              f"actions, built in {build_ms:.1f} ms with the weight statistic "
+              f"({RL_CLI_STAT_WORKERS} threads; pos {dataset.pos_tot}, neg {dataset.neg_tot})",
+              flush=True)
+        loader = COCODataLoader(dataset, 2)
+        loader.set_epoch(0)
+        batch = loader.assemble_job(loader.batch_plan()[0])
+        check(batch["data"].shape == RL_CLI_BLOB, f"the RL CLI's batch is {batch['data'].shape}")
+
+        # the flagship's weights with BN statistics from this batch's pixels
+        # (the RL normalisation), for --pretrained
+        data = torch.from_numpy(batch["data"]).to(dev)
+        info = torch.tensor([[*RL_CLI_BLOB[1:3], 1.0]] * 2, device=dev)
+        calibrated = calibrated_state(det_state, build_config("coco", TRAINVAL_SET),
+                                      f"resnet{RL_CLI_LAYERS}", {"data": data, "im_info": info})
+        pretrained = save_params(os.path.join(root, "pretrained.pth"), calibrated)
+        del calibrated
+        torch.cuda.empty_cache()
+
+        save_dir = os.path.join(root, "models")
+        common = ["--ann_file", ann, "--dt_file", dt_file, "--data_dir", img_dir,
+                  "--save_dir", save_dir, "--layers", str(RL_CLI_LAYERS),
+                  "--img_short", str(RL_CLI_SHORT), "--img_size", str(RL_CLI_MAX_SIZE),
+                  "--stat_workers", str(RL_CLI_STAT_WORKERS)]
+        counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                    "res_stage": res_stage_kernel.fused_res_stage,
+                    "roi_align_avg": roi_align_kernel.roi_align_avg}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters.values():
+            f.launches = 0
+        packs0 = cached_pack.packs
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            result = trainval_rl.main(["--epochs", "2", "--pretrained", pretrained] + common,
+                                      num_workers=RL_CLI_WORKERS)
+        peak = torch.cuda.max_memory_allocated()
+        packs = cached_pack.packs - packs0
+        steps = result["step"]
+        train_launches = {k: f.launches for k, f in counters.items()}
+        losses = [l[2:] for l in result["logged"]]
+        check(steps == 2 * (RL_CLI_IMAGES // 2) and len(result["checkpoints"]) == 2,
+              f"rl cli: {steps} steps, checkpoints {result['checkpoints']}")
+        check(losses and bool(np.isfinite(losses).all()), f"rl cli: logged losses {losses}")
+        # one launch a step (stem, RoIAlignAvg), three (layer1), 27 (the stage)
+        per_step = {"stem": 1, "layer1": 3, "res_stage": 27, "roi_align_avg": 1}
+        check(all(train_launches[k] >= n * steps for k, n in per_step.items()),
+              f"rl cli: a kernel launched less than its count a step: {train_launches}")
+        check(packs <= len(per_step), f"rl cli: {packs} packs over {steps} steps")
+        ck = read_checkpoint(result["checkpoints"][-1])
+        check(ck["kind"] == "rl" and ck["epoch"] == 2 and ck["step"] == steps
+              and all(torch.isfinite(v).all() for v in ck["model"].values()),
+              f"rl cli: checkpoint kind {ck.get('kind')}, epoch {ck['epoch']}, step {ck['step']}")
+        print(loop_rates("rl cli train loop batch 2", result["epochs"][1], peak)
+              + f"; logged (epoch, iter, loss, noweight) {result['logged']}; kernel packs over "
+              f"{steps} steps {packs}; launches {train_launches}", flush=True)
+
+        # the checkpoint: its bytes, and a load into a fresh net, SGD and
+        # schedule on the card
+        ckpt = result["checkpoints"][-1]
+        args = trainval_rl.parse_args(["--layers", str(RL_CLI_LAYERS)])
+        model = trainval_rl.build_model(args, action.num_acts, dev)
+        opt, sched = make_rl_optimizer(model, cfg, len(loader))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = load_checkpoint(ckpt, model, opt, sched)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        check(meta["step"] == steps and sched.last_epoch == steps,
+              f"rl cli checkpoint load: meta step {meta['step']}, schedule {sched.last_epoch}")
+        print(f"rl cli checkpoint: {os.path.getsize(ckpt)} bytes (params, frozen-BN "
+              f"statistics, momentum), save {result['epochs'][1]['save_ms']:.1f} ms, load into a "
+              f"fresh net, SGD and schedule on the card {load_ms:.1f} ms", flush=True)
+        del opt, sched
+
+        # eval at both wires: the detections as they are, then moved
+        pre = rl_hw_validate.score(ann, dt_file)
+        for wire in ("bf16", "f32"):
+            before = {k: f.launches for k, f in counters.items()}
+            with contextlib.redirect_stdout(io.StringIO()):
+                ev = trainval_rl.main(["-e", "--resume", ckpt, "--maxk", "1", "--wire", wire]
+                                      + common, num_workers=RL_CLI_WORKERS)
+            check(all(f.launches > before[k] for k, f in counters.items()),
+                  f"rl cli eval {wire}: a kernel was not launched")
+            post = ev["stats"]
+            check(len(ev["rows"]) == n_dets and post[0] >= pre[0],
+                  f"rl cli eval {wire}: {len(ev['rows'])} rows; mAP {post[0]} after the move "
+                  f"against {pre[0]} before")
+            print(f"rl cli eval wire {wire}: composed eval {ev['images']} images in "
+                  f"{ev['seconds']:.3f} s = {ev['images'] / ev['seconds']:.3f} images/s (loader "
+                  f"{ev['loader_s']:.3f} s, step+fetch {ev['step_s']:.3f} s, post "
+                  f"{ev['post_s']:.3f} s); Preck precision@1 {ev['preck']:.2f}%; mAP "
+                  f"{pre[0]:.4f} -> {post[0]:.4f}, AP50 {pre[1]:.4f} -> {post[1]:.4f}",
+                  flush=True)
+        launches = {k: f.launches for k, f in counters.items()}
+
+        # the kernels at the CLI's shapes (comparison launches not counted),
+        # and the f32 trunk with the stage kernel against cuDNN's layer2-3
+        data = torch.from_numpy(batch["data"]).to(dev)
+        rois = torch.from_numpy(batch["bboxes"]).to(dev).reshape(-1, 8)[:, :5].contiguous()
+        errs = rl_cli_kernel_checks(model, data, rois)
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        trunk = {}
+        with torch.no_grad():
+            for label, fused, ctx in (("stage kernel", 23, contextlib.nullcontext),
+                                      ("cuDNN layer2-3", 0, contextlib.nullcontext),
+                                      ("cuDNN layer2-3 without TF32", 0, full_f32)):
+                model.base.stages_fused = fused
+                with ctx():
+                    trunk[label] = time_ms(lambda: model.base(data), flush, reps=10)
+        model.base.stages_fused = 23
+        print(f"rl cli f32 trunk {RL_CLI_BLOB} (stem and layer1 kernels, CUDA events, median of "
+              f"10): " + ", ".join(f"{k} {v:.3f} ms" for k, v in trunk.items()), flush=True)
+        del model, flush, data
+        torch.cuda.empty_cache()
+
+        # resume equality: fresh processes under deterministic algorithms
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            res = rl_resume_validate.main(
+                ["--device", "cuda", "--layers", str(RL_CLI_LAYERS), "--batch_size", "2",
+                 "--img_short", str(RL_CLI_SHORT), "--img_size", str(RL_CLI_MAX_SIZE),
+                 "--ann_file", ann, "--dt_file", dt_file,
+                 "--data_dir", img_dir, "--pretrained", pretrained,
+                 "--work_dir", os.path.join(root, "resume")])
+        print(text.getvalue().strip().splitlines()[-1], flush=True)
+        check(res["ok"] and res["max_abs_delta"] == 0.0, f"rl resume: {res}")
+        return launches, errs
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def bench_gt(rng, b: int, g: int, h: int, w: int) -> np.ndarray:
     """`bench.py::_gt`: 8 random boxes of 40-190 px a image with a class in
     1..80, zero rows up to g."""
@@ -2221,6 +2478,13 @@ def main() -> None:
     rl_results, rl_launches = rl_net(det_state)
     torch.cuda.empty_cache()
 
+    # 4b. the RL CLI: ΔIoU dataset, train, checkpoint, eval at both wires,
+    # resume, the kernels at its f32 shapes
+    t0 = time.perf_counter()
+    rl_cli_launches, rl_cli_errs = rl_cli_path(det_state)
+    print(f"rl cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # 5. the detector's train step, from the flagship's weights
     train_results, train_launches = train_path(det_state)
     torch.cuda.empty_cache()
@@ -2254,11 +2518,16 @@ def main() -> None:
     results["roi_align_avg_bwd"] = train_results["roi_align_avg_bwd"]
     for k, e in cli_errs.items():                 # and at the training CLI's batch 8
         results[k]["err"] = tuple(map(max, results[k]["err"], e))
+    for k, e in rl_cli_errs.items():              # and at the RL CLI's f32 shapes
+        results[k]["err"] = tuple(map(max, results[k]["err"], e))
     bwd_steady = train_results["roi_align_avg_bwd steady"]
     launches = dict(launches,
-                    stem=launches["stem"] + eval_launches["stem"] + cli_launches["stem"],
-                    layer1=launches["layer1"] + eval_launches["layer1"] + cli_launches["layer1"],
-                    roi_align_avg=roi_launches, res_stage=rl_launches["res_stage"],
+                    stem=(launches["stem"] + eval_launches["stem"] + cli_launches["stem"]
+                          + rl_cli_launches["stem"]),
+                    layer1=(launches["layer1"] + eval_launches["layer1"] + cli_launches["layer1"]
+                            + rl_cli_launches["layer1"]),
+                    roi_align_avg=roi_launches + rl_cli_launches["roi_align_avg"],
+                    res_stage=rl_launches["res_stage"] + rl_cli_launches["res_stage"],
                     vgg_block1=vgg_launches["vgg_block1"] + vgg_train_launches["vgg_block1"],
                     roi_align_avg_bwd=(train_launches["roi_align_avg_bwd"]
                                        + vgg_train_launches["roi_align_avg_bwd"]
@@ -2275,12 +2544,15 @@ def main() -> None:
                                      "rlobjectdetection_tpu/ops/roi_align_vjp.py:39 (XLA)")}
     in_eval = f"the eval loop's {EVAL_IMAGES} images at batch 1 and at batch 2"
     in_cli = f"the training CLI's {2 * TRAINVAL_IMAGES} steps at batch 2"
-    where = {"stem": f"in 3 requests, {in_eval} and {in_cli}",
-             "layer1": f"in 3 requests, {in_eval} and {in_cli}",
-             "roi_align_avg": f"in 6 requests, {in_eval}, {TRAIN_STEPS} vgg16 train steps "
-                              f"and {in_cli}",
+    in_rl_cli = (f"the RL CLI's {RL_CLI_IMAGES} f32 train steps and 2 evals of "
+                 f"{RL_CLI_IMAGES} images at batch 2")
+    where = {"stem": f"in 3 requests, {in_eval}, {in_cli} and {in_rl_cli}",
+             "layer1": f"in 3 requests, {in_eval}, {in_cli} and {in_rl_cli}",
+             "roi_align_avg": f"in 6 requests, {in_eval}, {TRAIN_STEPS} vgg16 train steps, "
+                              f"{in_cli} and {in_rl_cli}",
              "vgg_block1": f"in 3 vgg16 requests and {TRAIN_STEPS} vgg16 train steps",
-             "res_stage": "in 3 RL requests and 3 RL train steps (layer2 + layer3)",
+             "res_stage": f"in 3 RL requests, 3 RL train steps and {in_rl_cli} (layer2 + "
+                          f"layer3)",
              "roi_align_avg_bwd": f"in {TRAIN_STEPS} resnet101 and {TRAIN_STEPS} vgg16 "
                                   f"train steps and {in_cli}"}
     kernels = []
@@ -2303,8 +2575,8 @@ def main() -> None:
         name = label.split()[0]
         report(name, r, f"{vgg_train_launches[name]} in {TRAIN_STEPS} vgg16 train steps", label)
     print(f"detector train path launches over {TRAIN_STEPS} steps: {train_launches}; vgg16 "
-          f"train path: {vgg_train_launches}; training CLI at batch 2: {cli_launches}",
-          flush=True)
+          f"train path: {vgg_train_launches}; training CLI at batch 2: {cli_launches}; RL CLI: "
+          f"{rl_cli_launches}", flush=True)
     print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -130,13 +130,16 @@ class TimedJobs:
 
 def train_epochs(model, loader, step_fn, draws_for_step, *, start_epoch: int = 1,
                  epochs: int = 1, global_step: int = 0, num_workers: int = 0,
-                 on_step=None, on_epoch=None):
+                 on_step=None, on_epoch=None, select=None):
     """Epochs `start_epoch..epochs` of `step_fn(batch, generator, dropout)`
-    over `loader` (a `RoiBatchLoader`), with `draws_for_step(global_step)` →
+    over `loader` (a `RoiBatchLoader`, or any loader with `set_epoch`,
+    `batch_plan` and `assemble_job`), with `draws_for_step(global_step)` →
     (generator, dropout). Each epoch: `loader.set_epoch(epoch)`, assembly on
     `num_workers` threads (0: in the loop), `device_prefetch` to the model's
-    device. `on_step(epoch, it, global_step, metrics)` runs after each step,
-    `on_epoch(epoch, global_step, stats)` after each epoch. Returns
+    device of every array of the batch, or of the dict of arrays
+    `select(batch)` returns. `on_step(epoch, it, global_step, metrics)`
+    runs after each step, `on_epoch(epoch, global_step, stats)` after each
+    epoch. Returns
     (global_step, [stats of each epoch]): images, steps, wall seconds, the
     steady seconds and images after the epoch's first step, the seconds the
     device waits between steps (CUDA events from a step's end to the next
@@ -150,7 +153,8 @@ def train_epochs(model, loader, step_fn, draws_for_step, *, start_epoch: int = 1
 
     def put(job_out):
         batch, ms = job_out
-        return {k: to_device(v, dev) for k, v in batch.items()}, ms
+        arrays = batch if select is None else select(batch)
+        return {k: to_device(v, dev) for k, v in arrays.items()}, ms
 
     history = []
     for epoch in range(start_epoch, epochs + 1):
