@@ -1,12 +1,11 @@
-"""COCO annotation API (copy of the JAX package's `data/coco_api.py`, bbox
-path).
+"""COCO annotation API (copy of the JAX package's `data/coco_api.py`).
 
 Annotation indexing (createIndex, getAnnIds, getCatIds, getImgIds,
-loadAnns, loadCats, loadImgs, info), detection-result loading (`loadRes`),
-`showAnns`, and bbox IoU with the crowd rule (`iou_xywh`, maskApi.c's
-bbIou). The segmentation parts (annToRLE, annToMask, segm results) wait for
-the RLE mask API (ROADMAP §1 item 17b); `download` fetches over the network
-and is not carried.
+loadAnns, loadCats, loadImgs, info), the loading of detection and
+segmentation results (`loadRes`), `annToRLE` / `annToMask` over the RLE
+mask API (`data/mask.py`, `native.py`), `showAnns`, and bbox IoU with the
+crowd rule (`iou_xywh`, maskApi.c's bbIou). `download` fetches over the
+network and is not carried.
 """
 
 from __future__ import annotations
@@ -106,7 +105,8 @@ class COCO:
         return [self.imgs[i] for i in _as_list(ids)]
 
     def loadRes(self, resFile):
-        """Load detection results json → a result COCO (coco.py:287-325, bbox path)."""
+        """Load detection or segmentation results json → a result COCO
+        (coco.py:287-325)."""
         res = COCO()
         res.dataset["images"] = [img for img in self.dataset.get("images", [])]
         if isinstance(resFile, str):
@@ -132,12 +132,36 @@ class COCO:
                 ann["id"] = i + 1
                 ann["iscrowd"] = 0
             elif "segmentation" in ann:
-                raise NotImplementedError(
-                    "segmentation results need the RLE mask API, which the port "
-                    "does not have yet (ROADMAP §1 item 17b)")
+                # segm results: area and bbox from the mask (coco.py:305-309)
+                from . import mask as maskUtils
+
+                rle = maskUtils.frPyObjects(ann["segmentation"], 0, 0) \
+                    if isinstance(ann["segmentation"], dict) else None
+                if rle is None:
+                    img = self.imgs[ann["image_id"]]
+                    rle = maskUtils.frPyObjects(
+                        ann["segmentation"], img["height"], img["width"])
+                    if isinstance(rle, list):
+                        rle = maskUtils.merge(rle)
+                ann["area"] = maskUtils.area(rle)
+                ann["bbox"] = maskUtils.toBbox(rle).tolist()
+                ann["id"] = i + 1
+                ann["iscrowd"] = 0
         res.dataset["annotations"] = anns
         res.createIndex(quiet=True)
         return res
+
+    def annToRLE(self, ann):
+        """An annotation's segmentation → RLE (any COCO encoding)."""
+        from . import mask as maskUtils
+
+        return maskUtils.ann_to_rle(ann, self)
+
+    def annToMask(self, ann):
+        """An annotation's segmentation → binary `[H, W]` mask."""
+        from .. import native
+
+        return native.decode(self.annToRLE(ann))
 
     def info(self):
         """Print the dataset info block (coco.py:128-134)."""

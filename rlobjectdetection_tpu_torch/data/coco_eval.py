@@ -1,11 +1,11 @@
-"""COCO detection evaluation (copy of the JAX package's `data/coco_eval.py`,
-bbox path).
+"""COCO detection evaluation, bbox and segm (copy of the JAX package's
+`data/coco_eval.py`).
 
 A numpy rebuild of pycocotools' COCOeval: evaluate, evaluateImg,
 accumulate and summarize with the canonical matching order, crowd and
 ignore semantics, 101-point precision interpolation and the 12 summary
-metrics. `iouType="segm"` needs the RLE mask API, which waits for ROADMAP
-§1 item 17b, and raises.
+metrics. `iouType="segm"` computes mask IoU through the RLE core
+(`data/mask.py`).
 """
 
 from __future__ import annotations
@@ -36,11 +36,7 @@ class Params:
 
 class COCOeval:
     def __init__(self, cocoGt: COCO = None, cocoDt: COCO = None, iouType: str = "bbox"):
-        if iouType == "segm":
-            raise NotImplementedError(
-                "segm evaluation needs the RLE mask API, which the port does "
-                "not have yet (ROADMAP §1 item 17b)")
-        if iouType != "bbox":
+        if iouType not in ("bbox", "segm"):
             raise ValueError(f"unknown iouType {iouType!r}")
         self.cocoGt = cocoGt
         self.cocoDt = cocoDt
@@ -116,6 +112,12 @@ class COCOeval:
         if len(dt) > p.maxDets[-1]:
             dt = dt[0:p.maxDets[-1]]
         iscrowd = [int(o.get("iscrowd", 0)) for o in gt]
+        if p.iouType == "segm":
+            from . import mask as maskUtils
+
+            g = [maskUtils.ann_to_rle(gg, self.cocoGt) for gg in gt]
+            d = [maskUtils.ann_to_rle(dd, self.cocoDt) for dd in dt]
+            return maskUtils.iou(d, g, iscrowd)
         g = np.array([gg["bbox"] for gg in gt]).reshape(-1, 4)
         d = np.array([dd["bbox"] for dd in dt]).reshape(-1, 4)
         return iou_xywh(d, g, iscrowd)

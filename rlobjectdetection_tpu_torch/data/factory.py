@@ -2,9 +2,9 @@
 `data/factory.py`).
 
 voc_{2007,2012}_{train,val,trainval,test}, coco_2014_{train,val,minival,
-valminusminival} and coco_2015_{test,test-dev}. The imagenet and vg names
-stay unregistered until their modules are ported (ROADMAP §1 item 17b);
-`get_imdb` raises KeyError for them, as for any unknown name.
+valminusminival}, coco_2015_{test,test-dev}, imagenet_{train,val,val1,val2,
+test} and vg_<version>_<split> for the 6 vocabulary versions and 7 splits.
+`get_imdb` raises KeyError for any other name.
 """
 
 from __future__ import annotations
@@ -30,6 +30,20 @@ def _register():
         for split in ["test", "test-dev"]:
             name = f"coco_{year}_{split}"
             __sets[name] = (lambda split=split, year=year: coco(split, year))
+
+    from .imagenet import imagenet
+    from .vg import vg
+
+    for split in ["train", "val", "val1", "val2", "test"]:
+        name = f"imagenet_{split}"
+        __sets[name] = (lambda split=split: imagenet(split))
+
+    for version in ["150-50-20", "150-50-50", "500-150-80", "750-250-150",
+                    "1750-700-450", "1600-400-20"]:
+        for split in ["minitrain", "smalltrain", "train", "minival",
+                      "smallval", "val", "test"]:
+            name = f"vg_{version}_{split}"
+            __sets[name] = (lambda split=split, version=version: vg(version, split))
 
 
 def get_imdb(name: str):

@@ -3,13 +3,18 @@ package's `tools/test_net.py`).
 
     python -m rlobjectdetection_tpu_torch.engine.test_net --dataset coco \
         [--net res101|res50|vgg16|tiny] [--load_dir D [--s S] [--checkepoch E]] \
-        [--weights F] [--load_npz P] [--batch N] [--device cuda] \
-        [--cfg F] [--ls] [--cag] [--vis [--vis_max K]] [--set KEY VALUE ...]
+        [--weights F] [--load_npz P] [--batch N] [--packed_input DIR] \
+        [--device cuda] [--cfg F] [--ls] [--cag] [--vis [--vis_max K]] \
+        [--set KEY VALUE ...]
 
 builds the test roidb (`$RLOD_DATA_DIR`, as the JAX package reads it), runs
 the detector over every image, writes `output/<net>/<imdb>/detections.pkl`
 and scores it with the imdb's `evaluate_detections` (COCOeval for COCO,
-`voc_eval` for VOC). The weights: a `trainval_net` checkpoint
+`voc_eval` for VOC, `vg_eval` for Visual Genome, the VOC-style loop for
+ImageNet DET). `--packed_input DIR` packs the roidb's prepared images into
+DIR first (`data/packed.py`; only what is new) and assembles batches from
+the pack: the same batches, without the decode and resize. The weights: a
+`trainval_net` checkpoint
 (`<load_dir>/<net>/<dataset>/faster_rcnn_<s>_<checkepoch>.pth`, whose
 pooling_mode replaces the config's; any of `--load_dir`, `--s` /
 `--checksession` and `--checkepoch` asks for one, the others default to
@@ -39,6 +44,7 @@ import torch
 from ..config import Config, cfg_update
 from ..data.imdb import combined_roidb
 from ..data.loader import RoiBatchLoader, eval_bucket_plan
+from ..data.packed import PackedRoiBatchLoader, pack_timed
 from ..data.prefetch import AsyncLoader, device_prefetch, to_device
 from ..device import resolve_device
 from ..models import FasterRCNN
@@ -57,14 +63,12 @@ DATASET_MAP = {
 }
 # batch assembly threads of the eval loop (AsyncLoader clamps to the cores)
 ASSEMBLY_THREADS = 4
-# flags of tools/test_net.py whose counterparts wait for a later part of the
-# port: each exits with the ROADMAP item that brings it
-WAITING_FLAGS = {"--packed_input": "it waits for ROADMAP §1 item 17b (data/packed.py)"}
 
 
 def refuse_waiting_flags(parser, argv, waiting: dict, prog: str) -> None:
     """Exit with code 2 and the flag's reason on a flag of `waiting` given
-    before `--set` (whose REMAINDER would swallow it)."""
+    before `--set` (whose REMAINDER would swallow it): the trainers' flags
+    whose counterparts wait for a later part of the port, or have none."""
     head = argv[:argv.index("--set")] if "--set" in argv else argv
     for flag in head:
         reason = waiting.get(flag.split("=", 1)[0])
@@ -92,10 +96,11 @@ def parse_args(argv=None):
     p.add_argument("--weights", default=None,
                    help="converted weights (convert_torch_weights output)")
     p.add_argument("--load_npz", default=None, help="save_net_npz dump of the JAX package")
+    p.add_argument("--packed_input", default=None,
+                   help="pack the prepared images into this directory (incremental) "
+                        "and assemble batches from it")
     p.add_argument("--device", default="cuda")
-    argv = sys.argv[1:] if argv is None else list(argv)
-    refuse_waiting_flags(p, argv, WAITING_FLAGS, "test_net")
-    return p.parse_args(argv)
+    return p.parse_args(sys.argv[1:] if argv is None else list(argv))
 
 
 class EvalJobs:
@@ -154,7 +159,7 @@ def unpack_dets(packed_row: np.ndarray):
 
 @torch.inference_mode()
 def detect_loop(model, cfg: Config, roidb, ratio_list, ratio_index, batch: int = 1,
-                on_batch=None):
+                on_batch=None, pack_root: str | None = None):
     """Every image of the roidb through the detector. Returns (dets, stats):
     dets[i] = (boxes, scores, classes, valid) of image i, in original image
     coordinates; stats holds the loop's wall, device-timed and steady
@@ -164,10 +169,14 @@ def detect_loop(model, cfg: Config, roidb, ratio_list, ratio_index, batch: int =
 
     `on_batch(idxs, data, info, out)`, if given, sees each batch as the
     model saw it (the blob and im_info on the device, the model's output
-    dict) after its detections are on the host, outside the timed spans."""
+    dict) after its detections are on the host, outside the timed spans.
+    With `pack_root` (a `pack_roidb` of these TEST.SCALES) the images come
+    from the pack."""
     dev = next(model.parameters()).device
-    loader = RoiBatchLoader(roidb, ratio_list, ratio_index, 1, scales=cfg.TEST.SCALES,
-                            max_num_gt=cfg.MAX_NUM_GT_BOXES, training=False)
+    kw = dict(scales=cfg.TEST.SCALES, max_num_gt=cfg.MAX_NUM_GT_BOXES, training=False)
+    loader = (RoiBatchLoader(roidb, ratio_list, ratio_index, 1, **kw) if pack_root is None
+              else PackedRoiBatchLoader(roidb, ratio_list, ratio_index, 1,
+                                        pack_root=pack_root, **kw))
     jobs = EvalJobs(loader, batch, cfg.TEST.SCALES)
 
     def put(job_out):
@@ -246,8 +255,8 @@ def write_vis(imdb_obj, roidb, i, boxes, scores, classes, valid, out_dir) -> Non
 
 
 def main(argv=None):
-    """Returns what `evaluate_detections` returns (VOC: the mean AP; COCO:
-    the 12 summary stats)."""
+    """Returns what `evaluate_detections` returns (VOC, ImageNet, VG: the
+    mean AP; COCO: the 12 summary stats)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     if args.batch < 1:
@@ -279,7 +288,10 @@ def main(argv=None):
     else:
         print("no checkpoint, --weights or --load_npz: evaluating seeded random weights")
 
-    dets, stats = detect_loop(model, cfg, roidb, ratio_list, ratio_index, args.batch)
+    if args.packed_input:
+        pack_timed(roidb, cfg.TEST.SCALES, args.packed_input)
+    dets, stats = detect_loop(model, cfg, roidb, ratio_list, ratio_index, args.batch,
+                              pack_root=args.packed_input)
     print_rates(stats)
     if args.vis:
         for i, d in enumerate(dets):
@@ -294,7 +306,8 @@ def main(argv=None):
 
     print("Evaluating detections")
     # competition mode: stable, unsalted result files that stay after scoring
-    imdb_obj.competition_mode(on=True)
+    if hasattr(imdb_obj, "competition_mode"):
+        imdb_obj.competition_mode(on=True)
     return imdb_obj.evaluate_detections(all_boxes, output_dir)
 
 

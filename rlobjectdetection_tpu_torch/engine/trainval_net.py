@@ -4,10 +4,14 @@ package's `tools/trainval_net.py`).
     python -m rlobjectdetection_tpu_torch.engine.trainval_net --dataset coco \
         [--net res101|res50|res152|vgg16|tiny] [--bs N] [--epochs E] [--lr LR] \
         [--lr_decay_step K] [--save_dir D] [--s S] [--r --checkepoch k] \
-        [--pretrained F] [--nw W] [--device cuda] [--set KEY VALUE ...]
+        [--pretrained F] [--nw W] [--packed_input DIR] [--device cuda] \
+        [--set KEY VALUE ...]
 
 builds the train roidb (`$RLOD_DATA_DIR`, flipped copies with
-TRAIN.USE_FLIPPED) and the aspect-grouped `RoiBatchLoader`, then trains:
+TRAIN.USE_FLIPPED) and the aspect-grouped `RoiBatchLoader` (with
+`--packed_input DIR`, `PackedRoiBatchLoader` over the roidb packed into
+DIR at TRAIN.SCALES first: the same batches, without the decode and
+resize), then trains:
 each epoch pins the loader's plan to the epoch (`set_epoch`), assembles
 batches on `--nw` worker threads (`AsyncLoader`; `--nw 0` assembles in the
 loop) and copies them to the card ahead of the step (`device_prefetch`).
@@ -33,6 +37,7 @@ import torch
 
 from ..data.imdb import combined_roidb
 from ..data.loader import RoiBatchLoader
+from ..data.packed import PackedRoiBatchLoader, pack_timed
 from ..data.prefetch import AsyncLoader, device_prefetch, to_device
 from ..device import resolve_device
 from ..models import FasterRCNN
@@ -54,7 +59,6 @@ DATASET_MAP = {
 }
 _DIST = "it waits for ROADMAP §1 item 14 (torch.distributed)"
 WAITING_FLAGS = {
-    "--packed_input": "it waits for ROADMAP §1 item 17b (data/packed.py)",
     "--dist_coordinator": _DIST, "--dist_nprocs": _DIST, "--dist_rank": _DIST,
     "--aot_cache": "it is the JAX package's executable cache, which has no counterpart "
                    "(ROADMAP §1)",
@@ -91,6 +95,9 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of this run's first N steps to logs/trace")
     p.add_argument("--nw", dest="num_workers", default=4, type=int,
                    help="batch assembly threads; 0 assembles in the loop")
+    p.add_argument("--packed_input", default=None,
+                   help="pack the prepared images into this directory (incremental) "
+                        "and assemble batches from it")
     p.add_argument("--skip_nonfinite", action="store_true",
                    help="skip optimizer updates whose gradients hold NaN or Inf")
     p.add_argument("--device", default="cuda")
@@ -230,9 +237,14 @@ def main(argv=None) -> dict:
     imdb_obj, roidb, ratio_list, ratio_index = combined_roidb(
         imdb_name, training=True, use_flipped=cfg.TRAIN.USE_FLIPPED)
     log.info(f"{len(roidb)} roidb entries")
-    loader = RoiBatchLoader(roidb, ratio_list, ratio_index, args.batch_size,
-                            scales=cfg.TRAIN.SCALES, max_num_gt=cfg.MAX_NUM_GT_BOXES,
-                            seed=cfg.RNG_SEED)
+    loader_kw = dict(scales=cfg.TRAIN.SCALES, max_num_gt=cfg.MAX_NUM_GT_BOXES,
+                     seed=cfg.RNG_SEED)
+    if args.packed_input:
+        pack_timed(roidb, cfg.TRAIN.SCALES, args.packed_input)
+        loader = PackedRoiBatchLoader(roidb, ratio_list, ratio_index, args.batch_size,
+                                      pack_root=args.packed_input, **loader_kw)
+    else:
+        loader = RoiBatchLoader(roidb, ratio_list, ratio_index, args.batch_size, **loader_kw)
     iters_per_epoch = len(loader)
 
     backbone = BACKBONES[args.net]

@@ -33,6 +33,7 @@ from rlobjectdetection_tpu_torch.models import FasterRCNN
 from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
 from rlobjectdetection_tpu_torch.ops.stem_kernel import packed_stem
 from test_torch_train import _gt_boxes
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 TINY_CFG = Config(TRAIN=TrainConfig(RPN_PRE_NMS_TOP_N=256, RPN_POST_NMS_TOP_N=64,
                                     BATCH_SIZE=32),

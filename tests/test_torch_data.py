@@ -37,6 +37,7 @@ from rlobjectdetection_tpu.data.imdb import rank_roidb_ratio as jax_rank_roidb_r
 from rlobjectdetection_tpu.data import loader as jax_loader
 from rlobjectdetection_tpu.data import synthetic as jax_synthetic
 from rlobjectdetection_tpu_torch.data import imdb, loader, prefetch, synthetic
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-3
 VOC_CLASSES = ("aeroplane", "bicycle", "bird")

@@ -33,6 +33,7 @@ from rlobjectdetection_tpu_torch.engine.serve import Detector
 from rlobjectdetection_tpu_torch.models import FasterRCNN
 from rlobjectdetection_tpu_torch.utils import logging as port_logging
 from test_torch_data import VOC_CLASSES, data_dir
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 TINY_SET = [
     "TRAIN.RPN_PRE_NMS_TOP_N", "256", "TRAIN.RPN_POST_NMS_TOP_N", "64",

@@ -28,6 +28,7 @@ from rlobjectdetection_tpu_torch.data import coco_api, coco_eval, synthetic, voc
 from rlobjectdetection_tpu_torch.data.coco import coco
 from rlobjectdetection_tpu_torch.data.pascal_voc import pascal_voc
 from test_torch_data import VOC_CLASSES, data_dir
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 TOL = 1e-9
 
@@ -177,9 +178,30 @@ def test_cocoeval_stats_match_jax(roots, shift):
         assert 0 < stats[0][0] < 1
 
 
-def test_cocoeval_refuses_segm():
-    with pytest.raises(NotImplementedError, match="17b"):
-        coco_eval.COCOeval(iouType="segm")
+def test_cocoeval_refuses_segm(roots):
+    """Only an unknown iouType is refused now: segm runs. On the COCO tree
+    with each gt's box as its polygon, the shifted boxes' polygons as segm
+    results give JAX's 12 stats (the same numpy on the same mask IoUs)."""
+    with pytest.raises(ValueError, match="iouType"):
+        coco_eval.COCOeval(iouType="keypoints")
+    stats = []
+    for root, api, ev in ((roots[1], coco_api, coco_eval), (roots[0], jax_coco_api,
+                                                             jax_coco_eval)):
+        ann = os.path.join(root, "coco", "annotations", "instances_minival2014.json")
+        gt = api.COCO(ann, quiet=True)
+        for a in gt.dataset["annotations"]:
+            x, y, w, h = a["bbox"]
+            a["segmentation"] = [[x, y, x + w, y, x + w, y + h, x, y + h]]
+        res = []
+        for r in _coco_results(gt, np.random.RandomState(14), 8.0):
+            x, y, w, h = r.pop("bbox")
+            res.append({**r, "segmentation": [[x, y, x + w, y, x + w, y + h, x, y + h]]})
+        e = ev.COCOeval(gt, gt.loadRes(res), iouType="segm")
+        e.evaluate()
+        e.accumulate()
+        stats.append(e.summarize())
+    np.testing.assert_allclose(stats[0], stats[1], rtol=0, atol=TOL)
+    assert 0 < stats[0][0] < 1
 
 
 def _printed_table(text):

@@ -20,6 +20,7 @@ import torch
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
 from rlobjectdetection_tpu_torch.ops import (layer1_kernel, roi_align, roi_align_kernel,
                                              stem_kernel, vgg_block1_kernel)
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 
 def _t(a):

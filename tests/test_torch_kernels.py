@@ -21,6 +21,7 @@ from rlobjectdetection_tpu.ops.stem_pallas import fused_stem as jax_fused_stem
 from rlobjectdetection_tpu_torch.engine.checkpoint import state_dict_from_jax
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
 from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align, roi_align_kernel, stem_kernel
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 

@@ -33,6 +33,7 @@ from rlobjectdetection_tpu_torch.engine.detect import (detections_to_all_boxes,
                                                       postprocess_detections)
 from rlobjectdetection_tpu_torch.models import FasterRCNN
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResNetBase
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 REL = 1e-4
 NUM_CLASSES = 21

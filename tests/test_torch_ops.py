@@ -17,6 +17,7 @@ from rlobjectdetection_tpu.ops.nms import nms_select as jax_nms_select
 from rlobjectdetection_tpu_torch.ops import anchors, boxes, nms
 from rlobjectdetection_tpu_torch.ops.bn_fold import bn_mul_add
 from test_nms import _rand_dets, np_greedy_nms
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
 from rlobjectdetection_tpu_torch.ops import layer1_kernel, stem_kernel
 from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 # bf16: the GEMM and the plain version round the same f32 results at the
 # same points, with sums in other orders: an output may round to the

@@ -22,6 +22,7 @@ from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer, ResNet
 from rlobjectdetection_tpu_torch.ops import res_stage_kernel
 
 from test_torch_kernels import _flat, _unflat, max_rel
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 
 def _stage_params(rng, planes, blocks, stride, cin, key):

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
 from rlobjectdetection_tpu_torch.ops import res_stage_kernel
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 SBO = 1024
 # bf16: the GEMM and the plain version round the same f32 sums at the same

@@ -12,6 +12,7 @@ import torch
 from rlobjectdetection_tpu_torch.models.backbones import resnet_ties
 from rlobjectdetection_tpu_torch.models.backbones.resnet import Bottleneck, ResLayer, nchw_to_nhwc
 from rlobjectdetection_tpu_torch.models.rpn import RPNHead
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 
 def _x(seed, shape):

@@ -37,6 +37,7 @@ from rlobjectdetection_tpu_torch.models.backbones import resnet as port_resnet
 from rlobjectdetection_tpu_torch.models.losses import weighted_mse_loss
 from rlobjectdetection_tpu_torch.models.rl import Action, RLPolicyNet, warm_start_from_detector
 from rlobjectdetection_tpu_torch.ops import res_stage_kernel
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 REL = 1e-4
 # Momentum buffers hold gradients, which sum layer4's 32 rois x 49 positions

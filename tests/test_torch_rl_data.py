@@ -29,6 +29,7 @@ from rlobjectdetection_tpu_torch.data.synthetic import make_coco_dataset
 from rlobjectdetection_tpu_torch.engine import generate_labels
 from rlobjectdetection_tpu_torch.engine.rl import wire_tensor
 from rlobjectdetection_tpu_torch.models.rl import Action
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SIZES, MAX_SIZE = (48, 80), 120      # a short-side range: the draws matter

@@ -26,6 +26,7 @@ import torch
 
 from rlobjectdetection_tpu.ops.roi_align_vjp import roi_align_avg_cvjp
 from rlobjectdetection_tpu_torch.ops import roi_align
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 A, P = 8, 7
 SCALE = 1.0 / 16.0

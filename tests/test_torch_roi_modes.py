@@ -62,6 +62,7 @@ from rlobjectdetection_tpu_torch.engine.checkpoint import state_dict_from_jax
 from rlobjectdetection_tpu_torch.models import FasterRCNN
 from rlobjectdetection_tpu_torch.models import faster_rcnn as port_frcnn
 from rlobjectdetection_tpu_torch.ops import roi_align, roi_crop, roi_pool
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 ONE_BF16_STEP = 2.0 ** -7

@@ -19,7 +19,8 @@ identical devkit. Bounds: detections.pkl within rtol 1e-4, atol 1e-4
 blob, im_info and detections to its own image, exactly. The same weights
 as a `trainval_net` checkpoint (`--load_dir`, `--s`, `--checksession`,
 `--checkepoch`) or as converted weights (`--weights`) give the `--load_npz`
-run's detections, exactly; `--packed_input` still exits, naming its item.
+run's detections, exactly; so does the roidb packed with `--packed_input`
+(at `--batch 2`).
 """
 
 import os
@@ -47,6 +48,7 @@ from rlobjectdetection_tpu_torch.data.loader import RoiBatchLoader
 from rlobjectdetection_tpu_torch.engine import test_net
 from test_torch_data import VOC_CLASSES, data_dir
 from test_torch_model import _perturbed
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 # the detector surface's --set flags, at 96 px
 SET = ["TEST.RPN_PRE_NMS_TOP_N", "128", "TEST.RPN_POST_NMS_TOP_N", "32", "TEST.SCALES",
@@ -199,11 +201,26 @@ def test_detect_loop_hands_each_row_to_its_image(setup):
             assert not data[1].any()
 
 
-@pytest.mark.parametrize("flag,item", [("--packed_input", "item 17b")])
-def test_flags_not_ported_yet_exit_with_their_roadmap_item(flag, item, capsys):
-    with pytest.raises(SystemExit) as e:
-        test_net.main(["--dataset", "pascal_voc", flag, "x", "--device", "cpu"])
-    assert e.value.code == 2 and item in capsys.readouterr().err
+def test_flags_not_ported_yet_exit_with_their_roadmap_item(setup, cli_runs, tmp_path):
+    """No flag of the JAX tool waits any more: `--packed_input` (item 17b)
+    runs. Packed, the `--batch 2` run gives the live `--batch 2` run's
+    detections, exactly."""
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        with data_dir(setup["proot"]):
+            test_net.main(["--dataset", "pascal_voc", "--net", "res50", "--device", "cpu",
+                           "--load_npz", setup["npz"], "--batch", "2", "--packed_input",
+                           str(tmp_path / "pack"), "--set", *SET])
+    finally:
+        os.chdir(cwd)
+    assert len(os.listdir(tmp_path / "pack")) == 5               # 4 arrays and the index
+    with open(tmp_path / "output" / "res50" / "voc_2007_test" / "detections.pkl", "rb") as f:
+        got = pickle.load(f)
+    want = cli_runs[2][0]
+    for j in range(21):
+        for i in range(4):
+            np.testing.assert_array_equal(got[j][i], want[j][i])
 
 
 @pytest.mark.parametrize("flags,session,epoch", [

@@ -44,6 +44,7 @@ from rlobjectdetection_tpu_torch.engine.optim import clip_by_global_norm_, param
 from rlobjectdetection_tpu_torch.models import FasterRCNN, losses, targets
 from rlobjectdetection_tpu_torch.ops import boxes, roi_align_kernel
 from rlobjectdetection_tpu_torch.utils.guards import finite_mask
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 NUM_CLASSES = 21
 LOSS_REL, UPDATE_REL = 1e-4, 1e-3

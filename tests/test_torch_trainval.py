@@ -10,7 +10,8 @@ JAX package, on the CPU in f32 (the kernels' plain versions run there).
   the port's `train_epochs`, ResNet-50 with the stem and layer1 kernels on
   (their plain versions here) at 96×128, the same weights through the npz
   bridge. Each package's loader reads its own copy of one synthetic VOC
-  devkit and gives the same batches, bit for bit; the anchor and proposal
+  devkit and gives the same batches, bit for bit (so does the port's
+  packed loader, `--packed_input`'s); the anchor and proposal
   keys the JAX steps drew are recorded (`jax.debug.callback`) and their
   uniforms replayed into the port's steps. Each step's losses 1e-4
   relative; the final parameters 1e-3 of each tensor's largest update
@@ -53,6 +54,7 @@ from rlobjectdetection_tpu_torch.config import Config, TrainConfig
 from rlobjectdetection_tpu_torch.data import synthetic
 from rlobjectdetection_tpu_torch.data.imdb import combined_roidb
 from rlobjectdetection_tpu_torch.data.loader import RoiBatchLoader
+from rlobjectdetection_tpu_torch.data.packed import PackedRoiBatchLoader, pack_roidb
 from rlobjectdetection_tpu_torch.engine import (build_optimizer, count_trainable,
                                                 make_lr_schedule, make_train_step,
                                                 trainval_net)
@@ -62,6 +64,7 @@ from rlobjectdetection_tpu_torch.engine.optim import param_labels
 from rlobjectdetection_tpu_torch.models import FasterRCNN
 from test_torch_data import VOC_CLASSES, data_dir
 from test_torch_train import Replay, _gt_boxes, _t, anchor_draws, proposal_draws
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 LOSS_REL, UPDATE_REL = 1e-4, 1e-3
 LOSSES = ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")
@@ -299,6 +302,23 @@ def test_loaders_give_the_jax_batches_after_set_epoch(loop_data, jax_loop):
             assert g[k].dtype == np.asarray(w[k]).dtype and np.array_equal(g[k], w[k]), k
 
 
+def test_packed_loader_gives_the_jax_batches_after_set_epoch(loop_data, jax_loop, tmp_path):
+    """The port's loader over its roidb packed at the loop's scale
+    (`--packed_input`, no longer refused): the JAX steps' batches, to the bit."""
+    _, port_loader = loop_data
+    _, want, _, _, _ = jax_loop
+    pack_roidb(port_loader.roidb, port_loader.scales, str(tmp_path), verbose=False)
+    packed = PackedRoiBatchLoader(port_loader.roidb, port_loader.ratio_list,
+                                  port_loader.ratio_index, 2, scales=port_loader.scales,
+                                  max_num_gt=20, seed=3, pack_root=str(tmp_path))
+    packed.set_epoch(1)
+    got = list(packed)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in ("data", "im_info", "gt_boxes", "num_boxes"):
+            assert g[k].dtype == np.asarray(w[k]).dtype and np.array_equal(g[k], w[k]), k
+
+
 def test_train_loop_matches_jax(loop_data, jax_loop, tmp_path):
     """`train_epochs` over the port loader: the batches each step sees are
     the JAX steps' to the bit, the losses 1e-4, the final parameters 1e-3
@@ -381,7 +401,6 @@ def test_step_draws_are_keyed_on_seed_and_step():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--packed_input", "x"], "item 17b"),
     (["--dist_coordinator", "localhost:1"], "item 14"),
     (["--dist_nprocs", "2"], "item 14"),
     (["--dist_rank", "0"], "item 14"),

@@ -41,6 +41,7 @@ from rlobjectdetection_tpu_torch.models import FasterRCNN
 from rlobjectdetection_tpu_torch.models.backbones import resnet_ties
 from rlobjectdetection_tpu_torch.models.backbones.resnet import LAYER_SPECS
 from rlobjectdetection_tpu_torch.models.rl import Action, warm_start_from_detector
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 A = 56

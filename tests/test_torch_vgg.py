@@ -33,6 +33,7 @@ from rlobjectdetection_tpu_torch.engine.checkpoint import state_dict_from_jax
 from rlobjectdetection_tpu_torch.models import FasterRCNN
 from rlobjectdetection_tpu_torch.models.backbones.vgg import VGGBase
 from rlobjectdetection_tpu_torch.ops import vgg_block1_kernel
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 REL = 1e-4

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from rlobjectdetection_tpu_torch.ops import vgg_block1_kernel
 from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 SBO = 1024
 # f32 sums, no intermediate rounding on either side: summation order only.

@@ -57,6 +57,7 @@ from rlobjectdetection_tpu_torch.models.backbones import vgg as port_vgg
 from rlobjectdetection_tpu_torch.models.backbones import vgg_ties
 from rlobjectdetection_tpu_torch.models.backbones.vgg import VGGBase, VGGHead, apply_dropout
 from rlobjectdetection_tpu_torch.ops import vgg_block1_kernel
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 
 NUM_CLASSES = 21
 # POOLING_SIZE cut to 2: fc6 takes 512·2·2 inputs, not 25088
