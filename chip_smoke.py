@@ -137,6 +137,33 @@ of each and `engine/bench_loader.py`'s rates; the RLE library built with
 g++ and `COCOeval(iouType="segm")` with the gt masks as detections to AP
 1.0.
 
+Then data parallelism (`dp_path`, its seconds printed as `dp phase: N s`):
+on a synthetic COCO set of 8 images made under `output/`,
+`trainval_net` for an epoch at batch 2 (bf16, `calibrated_state` weights
+as `--pretrained`) in one process and over NCCL at world 1 (`--dist_*`),
+both fresh processes under deterministic algorithms, their checkpoints
+(model, momentum, schedule, step) equal to the bit; the flagship's and
+VGG-16's f32 train step (TF32 off) on two ranks sharing the card over
+gloo, one 800×1088 image a rank, against the one-process step on both
+images (losses, gradients and updated parameters within 1e-4 of each
+tensor's largest, the one-process run's rounding-decided ReLU gates and
+pool routes replayed on the ranks, each a tie); `trainval_rl` at world 2
+(gloo) against one process for an epoch of the `rl_hw_validate` fixture at
+batch 3 (every batch padded by a zero-weight image), f32 with TF32 off;
+and `python -m rlobjectdetection_tpu_torch.parallel.dryrun 2 --device
+cuda`. Processes count their own launches and report them.
+
+Then the serving export (`export_path`, `export phase: N s`): the `rlod::`
+op's host cost a call against the direct ctypes launch (the stem, tiny and
+800×1216), and a whole flagship request (forward and postprocess) with
+the ops against the same request with every op's CUDA body called
+directly; the flagship at 800×1216, VGG-16 and the flagship with
+STAGE_FUSED=23 exported with `torch.export` from their served weights,
+each replayed in a fresh process that imports the ops and no model code,
+on one request's blob: detections equal to `Detector`'s forward and
+postprocess to the bit, the stem, layer1, RoIAlignAvg (and block-1 or
+stage) kernels launched there, 50 calls' images/s by CUDA events.
+
 Last, the flagship with POOLING_MODE pool, then crop (plain PyTorch on the
 card: XLA in JAX, no TPU kernel): three requests and one request's stages,
 two train steps, the op on the card against the same op on a CPU copy in
@@ -154,7 +181,10 @@ once a step, does not resume to the same tensors, or whose `test_net` or
 detections leave the live loader's, or whose gt does not score AP 1.0, an
 RL CLI run whose logged losses are not finite, whose
 checkpoint is not, whose moved boxes score a lower mAP than the unmoved
-ones or that does not resume to the same tensors, a train step whose
+ones or that does not resume to the same tensors, a data-parallel run
+that leaves the one-process run's bits (world 1) or bounds (world 2), an
+artifact whose replay leaves `Detector`'s detections or imports model
+code, a train step whose
 loss is not finite, that moves the frozen
 trunk or leaves the head unchanged, a whole train step whose losses or
 updates leave their bounds, a pool or crop result on the card that leaves
@@ -169,6 +199,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -2816,6 +2847,517 @@ def data_layer_path(det_state: dict) -> tuple[dict, dict]:
         shutil.rmtree(root, ignore_errors=True)
 
 
+DP_IMAGES = 8                         # 4 train + 4 valminusminival, flipped: 8 steps at batch 2
+DP_NET = ("res101", "resnet101")
+# The two ranks' f32 step (one 800×1088 image a rank, gloo over the one
+# card's tensors, TF32 off) against the one-process step on both images:
+# the ranks' cuDNN sees a batch of one where the one process sees two, so
+# their convolutions may sum in other orders (f32 rounding, ~1e-6 of a
+# feature), and the gradient is the ranks' mean, a reassociated sum. The
+# one-process run's ReLU gates (ResNet) and pool routes (VGG-16) are
+# replayed where rounding decides them (`resnet_ties`, `vgg_ties`), each
+# within DP_TIE_TOL of its layer's largest magnitude (a tie, not a
+# difference); then losses, gradients and updated parameters lie within
+# 1e-4 of each tensor's largest (the CPU test's 1e-5 for ResNet-50 at 96×128
+# measured 1.4e-5 there; 800-px features and 23 more blocks carry more
+# rounding).
+DP_STEP_TOL = 1e-4
+DP_TIE_TOL = 1e-4
+# The RL CLI at world 2 (gloo on the one card) against one process, an
+# epoch of 3 batches of 3 images (each padded by a zero image to 4), f32 with
+# TF32 off: its first logged loss (the same weights, printed to 4 decimals)
+# and every tensor of the epoch's checkpoint within RL_DP_TOL of its
+# largest. The head's layer4 and fc8 ReLU gates are not replayed here (the
+# runs are the CLI's own processes), so a gate within rounding of 0 may
+# route a gradient on one side only, as PR 12's CLI loop against JAX
+# (1e-3, 61 ties replayed there).
+RL_DP_BATCH = 3
+RL_DP_TOL = 1e-3
+# The export phase: the artifact's replay in a fresh process against
+# `Detector`'s forward and postprocess on the same blob, to the bit.
+EXPORT_BENCH_ITERS = 50
+CLI_CHILD = ("import json, sys, torch\n"
+             "torch.use_deterministic_algorithms(True)\n"
+             "torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = {tf32}\n"
+             "from rlobjectdetection_tpu_torch.engine import {cli}\n"
+             "from rlobjectdetection_tpu_torch.ops.library import WRAPPERS\n"
+             "{cli}.main(sys.argv[1:])\n"
+             "print('LAUNCHES ' + json.dumps({{k: f.launches for k, f in WRAPPERS.items()}}))\n")
+REPLAY_CHILD = """import json, sys, torch
+from rlobjectdetection_tpu_torch.engine.export_model import OUTPUT_KEYS, bench_artifact
+from rlobjectdetection_tpu_torch.ops.library import WRAPPERS
+path, inputs, out_path, iters = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+t0 = __import__("time").perf_counter()
+fn = torch.export.load(path).module()
+load_s = __import__("time").perf_counter() - t0
+x = torch.load(inputs)
+data, info = x["data"].cuda(), x["im_info"].cuda()
+for f in WRAPPERS.values():
+    f.launches = 0
+with torch.no_grad():
+    out = fn(data, info)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in WRAPPERS.items()}
+    torch.save({k: out[k].cpu() for k in OUTPUT_KEYS}, out_path)
+    rate = bench_artifact(fn, data, info, iters)
+models = [m for m in sys.modules if m.startswith("rlobjectdetection_tpu_torch.models")]
+print("REPLAY " + json.dumps({"launches": launches, "load_s": load_s, "models": models,
+                              "peak": torch.cuda.max_memory_allocated(), **rate}))
+print(json.dumps({"metric": "export_artifact_images_per_sec_per_chip",
+                  "value": rate["images_per_sec"], "unit": "images/s",
+                  "device": torch.cuda.get_device_name(0)}))
+"""
+
+
+def child(code: str, args, env: dict, cwd: str):
+    """A fresh Python process running `code` with `args`, started now."""
+    return subprocess.Popen([sys.executable, "-c", code, *args], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def wait_children(label: str, procs, timeout: float = 900.0) -> list[str]:
+    """Each child's output; raises (after stopping the rest) where one fails."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+            check(p.returncode == 0, f"{label}: a process exited {p.returncode}:\n"
+                  + outs[-1][-4000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def child_launches(out: str) -> dict:
+    line = [ln for ln in out.splitlines() if ln.startswith("LAUNCHES ")]
+    check(len(line) == 1, f"no launch counts in a child's output:\n{out[-2000:]}")
+    return json.loads(line[0][len("LAUNCHES "):])
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more.get(k, 0) for k in set(total) | set(more)}
+
+
+def dp_steps_vs_one(label: str, spec: dict) -> dict:
+    """`spec`'s step on 2 ranks (gloo over the card's tensors) against the
+    one-process step on the same global batch, the one-process run's
+    rounding-decided ReLU gates and pool routes replayed on the ranks.
+    Returns the ranks' launches."""
+    from rlobjectdetection_tpu_torch.parallel.dryrun import launch, run_spec
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        one = run_spec({**spec, "record_ties": True})         # sets TF32 off
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    spec = {**spec, "ties": one.pop("ties")}
+    two = launch(2, spec, backend="gloo")
+    seconds = time.perf_counter() - t0
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for k, w in one["metrics"].items():
+        g = two[0]["metrics"][k]
+        check(all(r["metrics"][k] == g for r in two), f"{label}: ranks disagree on {k}")
+        if k in ("fg_cnt", "bg_cnt"):
+            check(g == w, f"{label}: {k} {g} against one process's {w}")
+        else:
+            check(np.isfinite(w), f"{label}: {k} not finite")
+            worst["loss"] = max(worst["loss"], abs(g - w) / max(abs(w), 1e-12))
+    for name in ("grads", "params"):
+        for k, w in one[name].items():
+            e = float((two[0][name][k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            worst[name[:-1]] = max(worst[name[:-1]], e)
+            check(e <= DP_STEP_TOL, f"{label}: {name[:-1]} {k} {e:.3e} > {DP_STEP_TOL}")
+    check(worst["loss"] <= DP_STEP_TOL, f"{label}: loss {worst['loss']:.3e} > {DP_STEP_TOL}")
+    ties = [r["tie_counts"] for r in two]
+    check(all(t["flipped_max"] <= DP_TIE_TOL and t.get("routed", 0.0) <= DP_TIE_TOL
+              for t in ties), f"{label}: a replayed decision is no tie: {ties}")
+    launches = {}
+    for r in two:
+        launches = add_launches(launches, r["launches"])
+    print(f"{label}: 2 ranks (gloo, one card) against one process, f32, TF32 off: losses "
+          f"max rel {worst['loss']:.3e}, gradients {worst['grad']:.3e}, updated parameters "
+          f"{worst['param']:.3e} (bound {DP_STEP_TOL}); replayed ties {ties}; fg/bg "
+          f"{one['metrics']['fg_cnt']:.0f}/{one['metrics']['bg_cnt']:.0f}; launches "
+          f"{launches}; {seconds:.1f} s", flush=True)
+    return launches
+
+
+def dp_path(det_state: dict, vgg_state: dict) -> dict:
+    """Data parallelism on the card (`parallel/`): `trainval_net` for an
+    epoch of a synthetic COCO set at batch 2 from `calibrated_state`
+    weights, in one process and over NCCL at world 1 (`--dist_*`), fresh
+    processes under deterministic algorithms, their checkpoints equal to the
+    bit; the flagship's and VGG-16's f32 train step on two ranks sharing the
+    card over gloo (one 800×1088 image a rank) against the one-process step
+    on both (`dp_steps_vs_one`); `trainval_rl` at world 2 on gloo against
+    one process (batch 3: every batch padded by a zero image); and
+    `python -m rlobjectdetection_tpu_torch.parallel.dryrun 2 --device cuda`.
+    Returns the launches over the phase's runs (each counted in the
+    process that ran it)."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from rlobjectdetection_tpu_torch.data.imdb import combined_roidb
+    from rlobjectdetection_tpu_torch.data.loader import RoiBatchLoader
+    from rlobjectdetection_tpu_torch.data.rl_coco import (COCODataLoader, COCODataset,
+                                                           COCOTransform)
+    from rlobjectdetection_tpu_torch.engine import resume_validate, rl_hw_validate, trainval_net
+    from rlobjectdetection_tpu_torch.engine.checkpoint import read_checkpoint, save_params
+    from rlobjectdetection_tpu_torch.engine.serve import build_config
+    from rlobjectdetection_tpu_torch.config import RLConfig, cfg_update
+    from rlobjectdetection_tpu_torch.models.rl import Action
+    from rlobjectdetection_tpu_torch.parallel.dryrun import free_port
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(repo, "output"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="dp_path_", dir=os.path.join(repo, "output"))
+    launches = {}
+    try:
+        classes = tuple(f"category{i:02d}" for i in range(1, NUM_CLASSES))
+        resume_validate.make_dataset(root, "coco", DP_IMAGES, TRAINVAL_IMAGE_SIZE)
+        env = dict(os.environ, RLOD_DATA_DIR=root, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        cfg = build_config("coco", TRAINVAL_SET)
+        prev = os.environ.get("RLOD_DATA_DIR")
+        os.environ["RLOD_DATA_DIR"] = root
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, roidb, ratio_list, ratio_index = combined_roidb(
+                    trainval_net.DATASET_MAP["coco"][0], training=True, use_flipped=True)
+        finally:
+            if prev is None:
+                os.environ.pop("RLOD_DATA_DIR")
+            else:
+                os.environ["RLOD_DATA_DIR"] = prev
+        loader = RoiBatchLoader(roidb, ratio_list, ratio_index, 2, scales=cfg.TRAIN.SCALES,
+                                max_num_gt=cfg.MAX_NUM_GT_BOXES, seed=cfg.RNG_SEED)
+        loader.set_epoch(1)
+        batch_np = loader.assemble_job(loader.batch_plan()[0])
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+        check(tuple(batch["data"].shape) == TRAINVAL_BLOB, f"dp batch {batch['data'].shape}")
+        calibrated = calibrated_state(det_state, cfg, DP_NET[1], batch)
+        pretrained = save_params(os.path.join(root, "pretrained.pth"), calibrated)
+
+        # 1. the training CLI in one process and over NCCL at world 1: one
+        # computation, so the same bits
+        t0 = time.perf_counter()
+        argv = ["--dataset", "coco", "--net", DP_NET[0], "--bs", "2", "--epochs", "1",
+                "--lr", "0.01", "--nw", "4", "--disp_interval", "1", "--pretrained", pretrained]
+        code = CLI_CHILD.format(cli="trainval_net", tf32=True)
+        plain, nccl = (os.path.join(root, d) for d in ("plain", "nccl"))
+        dist = ["--dist_coordinator", f"localhost:{free_port()}", "--dist_nprocs", "1",
+                "--dist_rank", "0"]
+        outs = wait_children("dp world 1", [
+            child(code, [*argv, "--save_dir", plain, "--set", *TRAINVAL_SET], env, repo),
+            child(code, [*argv, *dist, "--save_dir", nccl, "--set", *TRAINVAL_SET], env, repo)])
+        check("data-parallel over 1 processes (nccl)" in outs[1],
+              "the --dist_* run did not join an NCCL group")
+        ck = [trainval_net.checkpoint_path(d, DP_NET[0], "coco", 1, 1) for d in (plain, nccl)]
+        a, b = (resume_validate.tensors(p) for p in ck)
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+              "trainval_net over NCCL at world 1 differs from the one-process run: "
+              f"{[k for k in a if not torch.equal(a[k], b.get(k, a[k] + 1))][:5]}")
+        steps = read_checkpoint(ck[1])["step"]
+        check(steps == DP_IMAGES, f"dp world 1: {steps} steps")
+        nccl_launches = child_launches(outs[1])
+        check(all(nccl_launches[k] >= (3 if k == "layer1" else 1) * steps for k in
+                  ("stem", "layer1", "roi_align_avg", "roi_align_avg_bwd")),
+              f"dp world 1: a kernel launched less than once a step: {nccl_launches}")
+        launches = add_launches(launches, nccl_launches)
+        rates = [re.search(r"train loop epoch 1: .*", o).group(0) for o in outs]
+        print(f"dp world 1: trainval_net over NCCL at world 1 ({steps} steps at batch 2, bf16) "
+              f"equals the one-process run to the bit in all {len(a)} checkpoint tensors; "
+              f"launches {nccl_launches}; {time.perf_counter() - t0:.1f} s (both runs at once "
+              f"on the card); one process: {rates[0]}; NCCL world 1 (DDP): {rates[1]}",
+              flush=True)
+
+        # 2. two ranks on the one card (gloo): the flagship's and VGG-16's
+        # f32 step against one process's
+        f32 = cfg_update(cfg, {"DTYPE": "float32"})
+        for label, backbone, state in (("dp step flagship", DP_NET[1], calibrated),
+                                       ("dp step vgg16", "vgg16", vgg_state)):
+            spec = dict(kind="detector", backbone=backbone, num_classes=NUM_CLASSES, cfg=f32,
+                        state=state, batch=batch_np, draw_seed=7, lr=0.01, device="cuda")
+            launches = add_launches(launches, dp_steps_vs_one(label, spec))
+        del calibrated
+
+        # 3. the RL CLI at world 2 (gloo) against one process
+        t0 = time.perf_counter()
+        rl_root = os.path.join(root, "rl")
+        ann, dt_file, img_dir = rl_hw_validate.build_fixture(rl_root, RL_CLI_IMAGES,
+                                                             RL_CLI_IMAGE_SIZE, classes=classes)
+        rl_cfg = RLConfig()
+        action = Action(list(rl_cfg.act_delta), iou_thres=rl_cfg.act_iou_thres,
+                        wtrans=rl_cfg.act_wtrans)
+        rl_loader = COCODataLoader(COCODataset(
+            img_dir, ann, dt_file, action,
+            transform_fn=COCOTransform(RL_CLI_SHORT, RL_CLI_MAX_SIZE),
+            normalize_mean=rl_cfg.normalize_mean, normalize_std=rl_cfg.normalize_std), 2)
+        rl_loader.set_epoch(0)
+        rl_batch_ = rl_loader.assemble_job(rl_loader.batch_plan()[0])
+        data = torch.from_numpy(rl_batch_["data"]).cuda()
+        info = torch.tensor([[*data.shape[1:3], 1.0]] * data.shape[0], device="cuda")
+        rl_pre = save_params(os.path.join(rl_root, "pretrained.pth"), calibrated_state(
+            det_state, cfg, f"resnet{RL_CLI_LAYERS}", {"data": data, "im_info": info}))
+        torch.cuda.empty_cache()
+        rl_argv = ["--ann_file", ann, "--dt_file", dt_file, "--data_dir", img_dir, "--epochs",
+                   "1", "--batch_size", str(RL_DP_BATCH), "--pretrained", rl_pre, "--lr", "0.01"]
+        code = CLI_CHILD.format(cli="trainval_rl", tf32=False)
+        coordinator = f"localhost:{free_port()}"
+        one_dir, two_dir = os.path.join(rl_root, "one"), os.path.join(rl_root, "two")
+        outs = wait_children("rl cli world 2", [
+            child(code, [*rl_argv, "--save_dir", one_dir], env, repo),
+            *[child(code, [*rl_argv, "--save_dir", two_dir, "--dist_coordinator", coordinator,
+                           "--dist_nprocs", "2", "--dist_rank", str(r), "--dist_backend",
+                           "gloo"], env, repo) for r in range(2)]])
+        # the first logged loss (printed to 4 decimals): the same weights
+        first = [float(re.search(r"\[0\]\[0/\d+\] loss\(sampled\) ([-\d.einf]+)", o).group(1))
+                 for o in outs[:2]]
+        check(abs(first[1] - first[0]) <= RL_DP_TOL * abs(first[0]),
+              f"rl cli world 2: first loss {first[1]} against one process's {first[0]}")
+        one_ck, two_ck = (read_checkpoint(os.path.join(d, "rl_epoch_1.pth"))["model"]
+                          for d in (one_dir, two_dir))
+        worst = max(float((two_ck[k].float() - v.float()).abs().max()
+                          / v.float().abs().max().clamp_min(1e-30)) for k, v in one_ck.items())
+        check(all(torch.isfinite(v).all() for v in two_ck.values()) and worst <= RL_DP_TOL,
+              f"rl cli world 2: checkpoint tensors {worst:.3e} from one process's > {RL_DP_TOL}")
+        rl_launches = add_launches(child_launches(outs[1]), child_launches(outs[2]))
+        # the RL net's trunk is frozen: no gradient reaches RoIAlignAvg's input
+        check(all(rl_launches[k] > 0 for k in ("stem", "layer1", "res_stage", "roi_align_avg")),
+              f"rl cli world 2: a kernel was not launched: {rl_launches}")
+        launches = add_launches(launches, rl_launches)
+        print(f"rl cli world 2: {RL_CLI_IMAGES} images at batch {RL_DP_BATCH} (gloo, one card, "
+              f"f32, TF32 off): first loss {first[1]:.6f} against one process's {first[0]:.6f}; "
+              f"checkpoint max rel {worst:.3e} (bound {RL_DP_TOL}); ranks' launches "
+              f"{rl_launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # 4. the dry run on the card
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "rlobjectdetection_tpu_torch.parallel.dryrun",
+                            "2", "--device", "cuda"], cwd=repo, capture_output=True, text=True,
+                           timeout=900)
+        check(r.returncode == 0, f"parallel.dryrun 2 --device cuda failed:\n{r.stderr[-4000:]}")
+        for line in r.stdout.splitlines():
+            if line.startswith("dryrun"):
+                print(line, flush=True)
+        ranks = json.loads(re.search(r"kernel launches (\[.*\])", r.stdout).group(1))
+        for one_rank in ranks:
+            launches = add_launches(launches, one_rank)
+        print(f"dryrun 2 --device cuda: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def dispatcher_cost() -> None:
+    """Host µs a call of a kernel through its `rlod::` op against the direct
+    ctypes launch on the same packed operands, alternating (op, direct,
+    direct, op), for the stem (four tensor operands) and layer1 (a
+    `Tensor?[]` of 24), at a tiny input (the host alone) and at the
+    flagship's shapes (where the kernel's own time hides part of it)."""
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops.res_stage_kernel import flat_blocks
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(64, 3, 7, 7, device=dev, generator=g) * 0.1
+    bn = [torch.rand(64, device=dev, generator=g) + 0.5 for _ in range(4)]
+    stem_ops = stem_kernel.packed_stem(w, *bn, bf16, dev)
+    layer = ResLayer(64, 64, 3, 1).to(dev).requires_grad_(False)
+    layer1_ops = layer1_kernel.packed_layer1(layer, bf16, dev)
+    cases = {}
+    for shape in ((1, 32, 32, 3), BLOB_SHAPE):
+        x = torch.randn(*shape, device=dev, generator=g)
+        cases[f"stem {list(shape)}"] = (
+            lambda x=x: torch.ops.rlod.stem(x, *stem_ops, bf16),
+            lambda x=x: stem_kernel.launch_stem(x, stem_ops, bf16))
+    for shape in ((1, 8, 8, 64), (1, 200, 304, 64)):
+        x = torch.randn(*shape, device=dev, generator=g).to(bf16)
+        cases[f"layer1 {list(shape)}"] = (
+            lambda x=x: torch.ops.rlod.layer1(x, flat_blocks(layer1_ops), bf16),
+            lambda x=x: layer1_kernel.launch_layer1(x, layer1_ops, bf16))
+    line = []
+    for label, (op, direct) in cases.items():
+        check(torch.equal(op(), direct()), f"{label}: the op and the direct launch differ")
+        per = {"op": [], "direct": []}
+        for name, fn in (("op", op), ("direct", direct), ("direct", direct), ("op", op)):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            per[name].append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        line.append(f"{label}: op {[round(v, 1) for v in per['op']]}, direct "
+                    f"{[round(v, 1) for v in per['direct']]}")
+    print("dispatcher cost, host µs a call through the rlod:: op against the direct launch: "
+          + "; ".join(line), flush=True)
+
+
+@contextlib.contextmanager
+def without_dispatcher():
+    """Every `rlod::` op replaced, as the wrappers look it up, by its CUDA
+    body called directly (the ctypes launch, or the NMS loop), so that a
+    request runs with no dispatcher between a wrapper and its kernel."""
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms, res_stage_kernel,
+                                                 roi_align_kernel, stem_kernel,
+                                                 vgg_block1_kernel)
+    from rlobjectdetection_tpu_torch.ops.res_stage_kernel import blocks_of
+    from rlobjectdetection_tpu_torch.ops.vgg_block1_kernel import VGG_KEYS
+
+    direct = {
+        "stem": lambda x, w, mul, add, dtype: stem_kernel.launch_stem(x, (w, mul, add), dtype),
+        "layer1": lambda x, packs, dtype: layer1_kernel.launch_layer1(x, blocks_of(packs),
+                                                                      dtype),
+        "res_stage": lambda x, packs, dtype: res_stage_kernel.launch_res_stage(
+            x, blocks_of(packs), dtype),
+        "vgg_block1": lambda x, packs, dtype: vgg_block1_kernel.launch_vgg_block1(
+            x, dict(zip(VGG_KEYS, packs)), dtype),
+        "roi_align_avg": roi_align_kernel._forward,
+        "nms_sorted_mask": nms._nms_sorted_mask,
+    }
+    ns = torch.ops.rlod
+    saved = {k: getattr(ns, k) for k in direct}
+    for k, f in direct.items():
+        setattr(ns, k, f)
+    try:
+        yield
+    finally:
+        for k, f in saved.items():
+            setattr(ns, k, f)
+
+
+def request_dispatcher_cost(request) -> None:
+    """Host ms of a whole request (`request()`: forward and postprocess,
+    synchronised) through the `rlod::` ops against the same request
+    `without_dispatcher`, alternating (ops, direct, direct, ops), 10
+    requests each after 2 warm ones; the two give the same bits."""
+    with_ops = request()
+    with without_dispatcher():
+        direct = request()
+    check(all(torch.equal(a, b) for a, b in zip(with_ops, direct)),
+          "request without the dispatcher: detections differ from the ops'")
+    per = {"ops": [], "direct": []}
+    for name in ("ops", "direct", "direct", "ops"):
+        with without_dispatcher() if name == "direct" else contextlib.nullcontext():
+            for _ in range(2):
+                request()
+            times = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                request()
+                times.append((time.perf_counter() - t0) * 1e3)
+        per[name].append(statistics.median(times))
+    print(f"dispatcher cost, a flagship request (800x1216, forward and postprocess, host ms, "
+          f"median of 10): ops {[round(v, 3) for v in per['ops']]}, direct "
+          f"{[round(v, 3) for v in per['direct']]}", flush=True)
+
+
+def export_path(det_state: dict, vgg_state: dict, images) -> dict:
+    """The serving export (`engine/export_model.py`): the flagship at
+    800×1216, VGG-16 and the flagship with STAGE_FUSED=23 exported with
+    `torch.export` from their served weights, each replayed in a fresh
+    process that imports the ops and no model code, on one request's blob:
+    its detections equal to `Detector`'s forward and postprocess on the
+    same blob to the bit, its kernels launched (counted there), and
+    EXPORT_BENCH_ITERS calls' images/s. Returns the launches over the
+    replays' first calls."""
+    import os
+    import shutil
+    import tempfile
+
+    from rlobjectdetection_tpu_torch.engine.detect import postprocess_detections
+    from rlobjectdetection_tpu_torch.engine.export_model import (OUTPUT_KEYS, build_serving_fn,
+                                                                 export_serving)
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+
+    dispatcher_cost()
+    dev = torch.device("cuda")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(repo, "output"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="export_path_", dir=os.path.join(repo, "output"))
+    launches = {}
+    try:
+        for label, backbone, state, extra, kernels in (
+                ("flagship", "resnet101", det_state, [], ("stem", "layer1", "roi_align_avg")),
+                ("vgg16", "vgg16", vgg_state, [], ("vgg_block1", "roi_align_avg")),
+                ("flagship STAGE_FUSED=23", "resnet101", det_state, ["STAGE_FUSED", "23"],
+                 ("stem", "layer1", "res_stage", "roi_align_avg"))):
+            t0 = time.perf_counter()
+            cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16", *extra])
+            model = FasterRCNN(NUM_CLASSES, backbone, cfg, device=dev, seed=3)
+            model.load_state_dict(state)
+            detector = Detector(model, cfg, dev)
+            blob, im_info = detector.blob(images[0])
+            check(blob.shape == BLOB_SHAPE, f"export {label}: blob {blob.shape}")
+            data, info = torch.from_numpy(blob).to(dev), torch.from_numpy(im_info).to(dev)
+            with torch.inference_mode():              # Detector.detect's forward and postprocess
+                out = model(data, info)
+                live = postprocess_detections(
+                    out["rois"][0], out["cls_prob"][0], out["bbox_pred"][0], info[0],
+                    out["roi_valid"][0], num_classes=model.num_classes,
+                    class_agnostic=model.class_agnostic,
+                    max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=cfg.TEST.NMS)
+            check(all(np.array_equal(a.cpu().numpy(), b) for a, b in
+                      zip(live, detector.detect(images[0]))),
+                  f"export {label}: the forward and postprocess are not Detector.detect's")
+            if label == "flagship":
+                def request():
+                    with torch.inference_mode():
+                        out = model(data, info)
+                        got = postprocess_detections(
+                            out["rois"][0], out["cls_prob"][0], out["bbox_pred"][0], info[0],
+                            out["roi_valid"][0], num_classes=model.num_classes,
+                            class_agnostic=model.class_agnostic,
+                            max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=cfg.TEST.NMS)
+                    torch.cuda.synchronize()
+                    return got
+
+                request_dispatcher_cost(request)
+            serving = build_serving_fn(model, max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE,
+                                       nms_thresh=cfg.TEST.NMS, cfg=cfg)
+            path = os.path.join(root, f"{backbone}{''.join(extra)}.pt2")
+            exported = export_serving(serving, (data, info), path)
+            del model, detector, serving
+            torch.cuda.empty_cache()
+            inputs, outputs = os.path.join(root, "inputs.pt"), os.path.join(root, "outputs.pt")
+            torch.save({"data": data.cpu(), "im_info": info.cpu()}, inputs)
+            t1 = time.perf_counter()
+            (text,) = wait_children(f"export {label} replay", [child(
+                REPLAY_CHILD, [path, inputs, outputs, str(EXPORT_BENCH_ITERS)],
+                dict(os.environ), repo)])
+            replay_s = time.perf_counter() - t1
+            rep = json.loads([ln for ln in text.splitlines()
+                              if ln.startswith("REPLAY ")][0][len("REPLAY "):])
+            got = torch.load(outputs)
+            equal = {k: torch.equal(got[k], v.cpu()) for k, v in zip(OUTPUT_KEYS, live)}
+            check(all(equal.values()), f"export {label}: the replay differs from Detector's "
+                  f"forward and postprocess: {equal}")
+            check(not rep["models"], f"export {label}: the replay imported {rep['models']}")
+            check(all(rep["launches"][k] > 0 for k in kernels),
+                  f"export {label}: the replay launched {rep['launches']}")
+            launches = add_launches(launches, rep["launches"])
+            print(f"export {label}: {exported['bytes']} bytes written in "
+                  f"{exported['seconds']:.1f} s; a fresh process loads it in "
+                  f"{rep['load_s']:.1f} s ({replay_s:.1f} s with its start and the bench), its "
+                  f"detections equal Detector's to the bit ({int(got['valid'].sum())} valid), "
+                  f"launches {rep['launches']}; {EXPORT_BENCH_ITERS} calls "
+                  f"{rep['images_per_sec']:.2f} images/s ({rep['ms_per_call']:.3f} ms a call, "
+                  f"CUDA events), peak {rep['peak']} bytes; {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def roi_mode_vs_cpu(label, op, feat: torch.Tensor, rois: torch.Tensor) -> None:
     """`op(features, rois)` on the card against the same function on a CPU
     copy, in f32: the output and the features' gradient for a random
@@ -2997,7 +3539,6 @@ def main() -> None:
 
     # 6. VGG-16's train step, from the served VGG-16's weights
     vgg_train_results, vgg_train_launches = vgg_train_path(vgg_state)
-    del vgg_state
     torch.cuda.empty_cache()
 
     # 7. the training CLI: train, checkpoint, resume, test_net, demo
@@ -3011,6 +3552,21 @@ def main() -> None:
     t0 = time.perf_counter()
     data_launches, data_errs = data_layer_path(det_state)
     print(f"data phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # 7c. data parallelism: the training CLI over NCCL at world 1, two
+    # ranks' steps on the card over gloo, the RL CLI at world 2, the dry run
+    t0 = time.perf_counter()
+    dp_launches = dp_path(det_state, vgg_state)
+    print(f"dp phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # 7d. the serving export: three artifacts, each replayed in a fresh
+    # process
+    t0 = time.perf_counter()
+    export_launches = export_path(det_state, vgg_state, images)
+    print(f"export phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    del vgg_state
     torch.cuda.empty_cache()
 
     # 8. the flagship in the pool and crop modes
@@ -3049,6 +3605,8 @@ def main() -> None:
                                        + vgg_train_launches["roi_align_avg_bwd"]
                                        + cli_launches["roi_align_avg_bwd"]
                                        + data_launches["roi_align_avg_bwd"]))
+    for phase in (dp_launches, export_launches):  # each counted in the process that ran it
+        launches = {k: n + phase.get(k, 0) for k, n in launches.items()}
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
                "layer1": ("csrc/layer1.cu", "rlobjectdetection_tpu/ops/layer1_pallas.py:317"),
                "roi_align_avg": ("csrc/roi_align.cu",
@@ -3067,15 +3625,21 @@ def main() -> None:
                      f"{2 * TRAINVAL_IMAGES} coco (live, packed) train steps at batch 2")
     in_data = (f"{in_data_train} and its test_net runs (vg {DATA_VG_IMAGES}, imagenet "
                f"{DATA_IMAGENET_IMAGES}, coco live and packed {DATA_MINIVAL} images each)")
-    where = {"stem": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli} and {in_data}",
-             "layer1": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli} and {in_data}",
+    in_dp = (f"the dp phase (the CLI's {DP_IMAGES} steps over NCCL at world 1, two ranks' "
+             f"steps, the RL CLI's ranks and the dry run's)")
+    in_export = "the export phase's replays (one request each)"
+    where = {"stem": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli}, {in_data}, {in_dp} "
+                     f"and {in_export}",
+             "layer1": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli}, {in_data}, {in_dp} "
+                       f"and {in_export}",
              "roi_align_avg": f"in 6 requests, {in_eval}, {TRAIN_STEPS} vgg16 train steps, "
-                              f"{in_cli}, {in_rl_cli} and {in_data}",
-             "vgg_block1": f"in 3 vgg16 requests and {TRAIN_STEPS} vgg16 train steps",
-             "res_stage": f"in 3 RL requests, 3 RL train steps and {in_rl_cli} (layer2 + "
-                          f"layer3)",
+                              f"{in_cli}, {in_rl_cli}, {in_data}, {in_dp} and {in_export}",
+             "vgg_block1": f"in 3 vgg16 requests, {TRAIN_STEPS} vgg16 train steps, {in_dp} "
+                           f"and {in_export}",
+             "res_stage": f"in 3 RL requests, 3 RL train steps, {in_rl_cli}, {in_dp} and "
+                          f"{in_export} (layer2 + layer3)",
              "roi_align_avg_bwd": f"in {TRAIN_STEPS} resnet101 and {TRAIN_STEPS} vgg16 "
-                                  f"train steps, {in_cli} and {in_data_train}"}
+                                  f"train steps, {in_cli}, {in_data_train} and {in_dp}"}
     kernels = []
     for name, r in results.items():
         report(name, r, f"{launches[name]} {where.get(name, 'in 3 requests')}",
@@ -3097,7 +3661,8 @@ def main() -> None:
         report(name, r, f"{vgg_train_launches[name]} in {TRAIN_STEPS} vgg16 train steps", label)
     print(f"detector train path launches over {TRAIN_STEPS} steps: {train_launches}; vgg16 "
           f"train path: {vgg_train_launches}; training CLI at batch 2: {cli_launches}; RL CLI: "
-          f"{rl_cli_launches}; data phase: {data_launches}", flush=True)
+          f"{rl_cli_launches}; data phase: {data_launches}; dp phase: {dp_launches}; export "
+          f"phase: {export_launches}", flush=True)
     print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

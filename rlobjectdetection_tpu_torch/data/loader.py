@@ -11,8 +11,9 @@ padded to MAX_NUM_GT_BOXES. Batches are NHWC numpy blobs whose padded
 H×W is rounded up to multiples of `pad_multiple`, so a batch's shape comes
 from a bounded set. Plans are keyed on (seed, epoch) and each batch carries
 its own seed, so batches can be assembled in any order on worker threads
-(`prefetch.AsyncLoader`). `HostShardLoader` and the canvas prediction it
-needs wait for multi-GPU training (ROADMAP §1 item 14).
+(`prefetch.AsyncLoader`). Under data parallelism each rank assembles only
+its rows of every batch (`HostShardLoader`), on the global batch's canvas
+(`RoiBatchLoader.predict_train_canvas`).
 """
 
 from __future__ import annotations
@@ -277,6 +278,74 @@ class RoiBatchLoader:
         """Assemble one batch_plan() entry (the AsyncLoader work unit)."""
         idxs, ratio, seed = job
         return self._assemble(idxs, ratio, seed=seed)
+
+    def predict_train_canvas(self, indices, target_ratio: float, seed: int,
+                             index_offset: int = 0) -> tuple[int, int]:
+        """The padded (H, W) `_assemble` gives this batch, without decoding
+        an image: from the roidb's sizes, each image's rng stream (the scale
+        pick is its first draw) and the crop rules of `_load_one` /
+        `_crop_to_ratio` (a crop window's position is random, its extent is
+        not). Every rank of a data-parallel run agrees on the global canvas
+        this way while it assembles only its own rows."""
+        hs, ws = [], []
+        for i, idx in enumerate(indices):
+            e = self.roidb[idx]
+            r = _img_rng(seed, index_offset + i)
+            scale = self.scales[r.randint(0, len(self.scales))]
+            h0, w0 = int(e["height"]), int(e["width"])
+            s = float(scale) / min(h0, w0)
+            # the resize's size rounds half to even, as python's round()
+            rh, rw = int(round(h0 * s)), int(round(w0 * s))
+            has_gt = bool(np.any(e["gt_classes"] != 0))
+            if self.training and e.get("need_crop", 0) and has_gt:
+                if target_ratio < 1:
+                    rh = min(int(np.floor(rw / target_ratio)), rh)
+                else:
+                    rw = min(int(np.ceil(rh * target_ratio)), rw)
+            if self.training and target_ratio == 1.0:
+                rh = rw = min(rh, rw)
+            hs.append(rh)
+            ws.append(rw)
+        return pad_shape(max(hs), max(ws), self.pad_multiple)
+
+    def __iter__(self) -> Iterator[DetectionBatch]:
+        for job in self.batch_plan():
+            yield self.assemble_job(job)
+
+
+class HostShardLoader:
+    """A rank's view of a `RoiBatchLoader` under data parallelism: rows
+    `[start, start + size)` of every batch of the shared, epoch-keyed plan.
+
+    Each image's rng stream is keyed on its position in the GLOBAL batch,
+    so the rows equal those rows of the full assembly to the bit, and the
+    canvas is the global batch's (`predict_train_canvas`), so every rank's
+    rows have one shape (a canvas that an image outgrows raises rather than
+    grows). Works with `AsyncLoader` (`batch_plan` / `assemble_job`) and
+    `trainval_net.train_epochs` (`set_epoch`)."""
+
+    def __init__(self, loader: RoiBatchLoader, start: int, size: int):
+        self.loader = loader
+        self.start = start
+        self.size = size
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def batch_plan(self):
+        plan = []
+        for idxs, ratio, seed in self.loader.batch_plan():
+            canvas = self.loader.predict_train_canvas(idxs, ratio, seed)
+            plan.append((idxs[self.start:self.start + self.size], ratio, seed, canvas))
+        return plan
+
+    def assemble_job(self, job) -> DetectionBatch:
+        idxs, ratio, seed, canvas = job
+        return self.loader._assemble(idxs, ratio, seed=seed, index_offset=self.start,
+                                     pad_hw=canvas, strict_pad=True)
 
     def __iter__(self) -> Iterator[DetectionBatch]:
         for job in self.batch_plan():

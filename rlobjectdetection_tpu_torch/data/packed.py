@@ -39,16 +39,30 @@ def _key(image_path: str, flipped: bool, scale: int) -> str:
     return f"{h}_s{int(scale)}{'_f' if flipped else ''}"
 
 
+def _write_whole(path: str, write) -> None:
+    """`write(file)` into a temporary file beside `path`, then rename it
+    to `path` (atomic on one file system)."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+    os.replace(tmp, path)
+
+
 def pack_roidb(roidb, scales, root: str, verbose: bool = True) -> str:
     """Prepare every (entry, scale) combination of `roidb` into `root`.
 
     Entries that share an image path but differ in `flipped` pack apart
     (the flip comes before the resize, so the pixels differ). Entries
-    already in the pack are kept, so a second call packs only what is new."""
+    already in the pack are kept, so a second call packs only what is new
+    and rewrites nothing. Each file is written whole under another name
+    and then renamed into place, so a reader (or another writer, as the
+    ranks of two hosts on a shared directory are) never sees a part of
+    one."""
     os.makedirs(root, exist_ok=True)
     index_path = os.path.join(root, _INDEX)
     index = {}
-    if os.path.exists(index_path):
+    existed = os.path.exists(index_path)
+    if existed:
         with open(index_path) as f:
             index = json.load(f)
         if index.get("__version__", _VERSION) != _VERSION:
@@ -67,12 +81,12 @@ def pack_roidb(roidb, scales, root: str, verbose: bool = True) -> str:
             if key in index:
                 continue
             im, im_scale = prep_im_for_blob(base, PIXEL_MEANS_BGR, scale)
-            np.save(os.path.join(root, key + ".npy"),
-                    np.ascontiguousarray(im, dtype=np.float32))
+            _write_whole(os.path.join(root, key + ".npy"),
+                         lambda f: np.save(f, np.ascontiguousarray(im, dtype=np.float32)))
             index[key] = {"im_scale": im_scale, "shape": [int(s) for s in im.shape]}
             done += 1
-    with open(index_path, "w") as f:
-        json.dump(index, f)
+    if done or not existed:
+        _write_whole(index_path, lambda f: f.write(json.dumps(index).encode()))
     if verbose:
         print(f"packed {done} new arrays into {root} ({len(index) - 1} total)")
     return root

@@ -41,17 +41,33 @@ def normalize_image(rgb: np.ndarray, mean, std) -> np.ndarray:
     return (img - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
 
 
-def collate(samples, num_acts: int, pad_multiple: int = 32) -> dict:
+def detection_slots(most: int) -> int:
+    """A batch's detection axis: its most detections (at least 1) rounded
+    up to a multiple of 16."""
+    return -(-max(int(most), 1) // 16) * 16
+
+
+def collate(samples, num_acts: int, pad_multiple: int = 32, pad_hw=None,
+            max_n: int | None = None) -> dict:
     """Batch samples: images zero-padded to the batch max H/W rounded up to
     `pad_multiple`; detections padded to the batch max rounded up to a
     multiple of 16 (zero label weight there), with a batch-id column
     prepended, so bboxes is `[B, N, 8]` = (batch_id, x1, y1, x2, y2, score,
-    cat, img_id). Returns {data, bboxes, labels, num_dts, im_info}."""
+    cat, img_id). Returns {data, bboxes, labels, num_dts, im_info}.
+    `pad_hw` / `max_n` give the canvas and the detection axis instead (a
+    data-parallel rank's share of a larger batch's); a sample that
+    outgrows them raises."""
     b = len(samples)
-    ph, pw = pad_shape(max(s[0].shape[0] for s in samples),
-                       max(s[0].shape[1] for s in samples), pad_multiple)
-    max_n = max(max(s[1].shape[0] for s in samples), 1)
-    max_n = -(-max_n // 16) * 16
+    if pad_hw is None:
+        pad_hw = pad_shape(max(s[0].shape[0] for s in samples),
+                           max(s[0].shape[1] for s in samples), pad_multiple)
+    if max_n is None:
+        max_n = detection_slots(max(s[1].shape[0] for s in samples))
+    ph, pw = pad_hw
+    for img, bx, _, info in samples:
+        if img.shape[0] > ph or img.shape[1] > pw or bx.shape[0] > max_n:
+            raise ValueError(f"{info[5]}: {img.shape[:2]} image and {bx.shape[0]} detections "
+                             f"outgrow the batch's {ph}x{pw} canvas and {max_n} slots")
     imgs = np.zeros((b, ph, pw, 3), dtype=np.float32)
     bboxes = np.zeros((b, max_n, 8), dtype=np.float32)
     labels = np.zeros((b, max_n, num_acts, 3), dtype=np.float32)
@@ -159,11 +175,7 @@ class COCOTransform:
                  rng: np.random.RandomState | None = None):
         """Returns (scale, resized image, boxes scaled and flipped)."""
         rng = self.rng if rng is None else rng
-        image_w, image_h = img.size
-        short, large = min(image_w, image_h), max(image_w, image_h)
-        size = rng.randint(self.scale_min, self.scale_max + 1)
-        scale = min(size / short, self.max_size / large)
-        new_w, new_h = int(np.floor(image_w * scale)), int(np.floor(image_h * scale))
+        scale, new_w, new_h = self.out_size(*img.size, rng)
         img = img.resize((new_w, new_h))
         if bboxes.shape[0] > 0:
             bboxes = bboxes.copy()
@@ -175,6 +187,14 @@ class COCOTransform:
                 bboxes[:, 0] = new_w - scale - bboxes[:, 2]
                 bboxes[:, 2] = new_w - scale - x1
         return scale, img, bboxes
+
+    def out_size(self, image_w: int, image_h: int, rng: np.random.RandomState):
+        """(scale, new_w, new_h) of an image; the short side is `rng`'s
+        first draw."""
+        short, large = min(image_w, image_h), max(image_w, image_h)
+        size = rng.randint(self.scale_min, self.scale_max + 1)
+        scale = min(size / short, self.max_size / large)
+        return scale, int(np.floor(image_w * scale)), int(np.floor(image_h * scale))
 
 
 class COCODataset:
@@ -241,6 +261,20 @@ class COCODataset:
         return (np.asarray(bboxes_out, dtype=np.float32),
                 np.asarray(labels_out, dtype=np.float32))
 
+    def detection_count(self, idx) -> int:
+        """The detections of the idx-th image (`label_detections`' rows)."""
+        img_id = self.imgIds[idx]
+        return sum(len(self.dt_boxes.get((img_id, c), ())) for c in self.catIds)
+
+    def predict_size(self, idx, rng: np.random.RandomState) -> tuple[int, int]:
+        """The (H, W) of `self[idx, rng]`'s image, from the gt json's size
+        and the transform's draw, without reading the file."""
+        meta = self.cocoGt.imgs[self.imgIds[idx]]
+        w, h = meta["width"], meta["height"]
+        if self.transform_fn:
+            _, w, h = self.transform_fn.out_size(w, h, rng)
+        return h, w
+
     def __getitem__(self, idx, rng: np.random.RandomState | None = None):
         """(image, bboxes, labels, im_info) of the idx-th image id; `rng`
         feeds the transform's draws."""
@@ -296,16 +330,32 @@ class COCODataLoader:
         return [(epoch, [int(i) for i in order[s: s + self.batch_size]])
                 for s in range(0, len(order), self.batch_size)]
 
+    def item(self, epoch: int, idx: int):
+        """The idx-th sample of `epoch`: its draws from `RandomState([seed,
+        epoch, idx])`."""
+        return self.dataset.__getitem__(idx, rng=np.random.RandomState([self.seed, epoch, idx]))
+
     def assemble_job(self, job) -> dict:
-        """One collated batch of `batch_plan()`; each item draws from
-        `RandomState([seed, epoch, index])`."""
+        """One collated batch of `batch_plan()`."""
         epoch, idxs = job
-        return self.collate([self.dataset.__getitem__(
-            i, rng=np.random.RandomState([self.seed, epoch, i])) for i in idxs])
+        return self.collate([self.item(epoch, i) for i in idxs])
+
+    def predict_job(self, job):
+        """(canvas (H, W), detection axis, num_dts) of `assemble_job(job)`,
+        without reading an image: each image's size from the gt json and
+        its item's first draw, its detections counted."""
+        epoch, idxs = job
+        sizes = [self.dataset.predict_size(i, np.random.RandomState([self.seed, epoch, i]))
+                 for i in idxs]
+        num_dts = np.asarray([self.dataset.detection_count(i) for i in idxs], np.int32)
+        pad_hw = pad_shape(max(h for h, _ in sizes), max(w for _, w in sizes),
+                           self.pad_multiple)
+        return pad_hw, detection_slots(num_dts.max()), num_dts
 
     def __iter__(self):
         for job in self.batch_plan():
             yield self.assemble_job(job)
 
-    def collate(self, samples) -> dict:
-        return collate(samples, self.dataset.bbox_action.num_acts, self.pad_multiple)
+    def collate(self, samples, pad_hw=None, max_n: int | None = None) -> dict:
+        return collate(samples, self.dataset.bbox_action.num_acts, self.pad_multiple,
+                       pad_hw, max_n)

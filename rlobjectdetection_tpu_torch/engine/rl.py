@@ -54,15 +54,25 @@ def make_rl_optimizer(model, cfg: RLConfig, steps_per_epoch: int):
     return opt, sched
 
 
-def rl_train_step(model, opt, sched, data, bboxes, targets, weights, num_dts):
+def rl_train_step(model, opt, sched, data, bboxes, targets, weights, num_dts, *,
+                  global_batch=None, **dp):
     """One SGD step on the weighted-MSE loss. Returns (loss, noweight),
-    detached."""
+    detached.
+
+    Data parallel: `model` is the DDP-wrapped net, the arrays this rank's
+    rows and `dp` their `images` / `image_mask` with the global batch's
+    `num_dts` (`trainval_rl.shard_rl_batch`), `global_batch` the group's
+    `GlobalBatch`: the loss and its gradient are then the global batch's,
+    and so are the returned values (the ranks' means)."""
     opt.zero_grad(set_to_none=True)
-    _, loss, noweight = model(data, bboxes, targets, weights, num_dts)
+    _, loss, noweight = model(data, bboxes, targets, weights, num_dts, **dp)
     loss.backward()
     opt.step()
     sched.step()
-    return loss.detach(), noweight.detach()
+    out = {"loss": loss.detach(), "noweight": noweight.detach()}
+    if global_batch is not None:
+        out = global_batch.metrics(out)
+    return out["loss"], out["noweight"]
 
 
 class Refiner:

@@ -23,7 +23,7 @@ import torch
 from ..utils.guards import skip_nonfinite_step
 
 
-def make_train_step(model, opt, sched, skip_nonfinite: bool = False):
+def make_train_step(model, opt, sched, skip_nonfinite: bool = False, global_batch=None):
     """Returns `train_step(batch, generator, dropout=None) → metrics`.
     batch: {data `[B, H, W, 3]`, im_info `[B, 3]`, gt_boxes `[B, G, 5]`,
     num_boxes `[B]`} on the model's device; generator, and dropout where
@@ -31,12 +31,22 @@ def make_train_step(model, opt, sched, skip_nonfinite: bool = False):
     source). Metrics are detached device tensors:
     loss (the four-term sum), rpn_cls, rpn_box, rcnn_cls, rcnn_box, fg_cnt,
     bg_cnt, and with `skip_nonfinite` `skipped` (1.0 where a non-finite
-    gradient left the parameters, momentum and schedule as they were)."""
+    gradient left the parameters, momentum and schedule as they were).
+
+    Data parallel: `model` is the DDP-wrapped detector
+    (`parallel.mesh.replicate`), `batch` this rank's rows and
+    `global_batch` the group's `parallel.distributed.GlobalBatch`. The
+    step is then the single-process step on the global batch: its draws,
+    its RPN normalisation (`FasterRCNN.forward`), DDP's mean of the
+    gradients, the clip on their global norm (the optimizer steps after
+    the all-reduce), one skip decision for every rank, and the metrics as
+    the global batch's means (fg_cnt, bg_cnt: sums)."""
 
     def train_step(batch: dict, generator, dropout=None) -> dict:
         opt.zero_grad(set_to_none=True)
+        dp = {} if global_batch is None else {"global_batch": global_batch}
         out = model(batch["data"], batch["im_info"], batch["gt_boxes"], batch.get("num_boxes"),
-                    train=True, generator=generator, dropout=dropout)
+                    train=True, generator=generator, dropout=dropout, **dp)
         loss = (out["rpn_loss_cls"] + out["rpn_loss_box"]
                 + out["rcnn_loss_cls"] + out["rcnn_loss_bbox"])
         loss.backward()
@@ -46,8 +56,11 @@ def make_train_step(model, opt, sched, skip_nonfinite: bool = False):
                    "rcnn_box": out["rcnn_loss_bbox"].detach(),
                    "fg_cnt": (out["rois_label"] > 0).sum(),
                    "bg_cnt": (out["rois_label"] == 0).sum()}
+        if global_batch is not None:
+            metrics = global_batch.metrics(metrics)
         if skip_nonfinite:
-            metrics["skipped"] = torch.tensor(float(skip_nonfinite_step(opt, sched)))
+            agree = None if global_batch is None else global_batch.all_true
+            metrics["skipped"] = torch.tensor(float(skip_nonfinite_step(opt, sched, agree)))
         else:
             opt.step()
             sched.step()

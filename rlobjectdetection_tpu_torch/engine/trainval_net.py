@@ -5,6 +5,7 @@ package's `tools/trainval_net.py`).
         [--net res101|res50|res152|vgg16|tiny] [--bs N] [--epochs E] [--lr LR] \
         [--lr_decay_step K] [--save_dir D] [--s S] [--r --checkepoch k] \
         [--pretrained F] [--nw W] [--packed_input DIR] [--device cuda] \
+        [--dist_coordinator HOST:PORT --dist_nprocs N --dist_rank R] \
         [--set KEY VALUE ...]
 
 builds the train roidb (`$RLOD_DATA_DIR`, flipped copies with
@@ -23,6 +24,20 @@ draws of the run it continues. A checkpoint is written at the end of every
 epoch, `<save_dir>/<net>/<dataset>/faster_rcnn_<s>_<epoch>.pth`; `--r
 --checkepoch k` restores the model, momentum, schedule and step from
 epoch k's and goes on at epoch k + 1.
+
+Data parallel: one process a GPU, started by torchrun (or SLURM, mpirun)
+or by hand with `--dist_coordinator host:port --dist_nprocs N --dist_rank
+r` (`--dist_backend gloo` lets ranks share a GPU). `--bs` is the global
+batch and must divide by N. Every rank follows the same epoch-keyed plan
+and assembles only its rows of each batch (`HostShardLoader`), the model
+is replicated from rank 0 by DDP after the weights and any checkpoint are
+loaded, and the step is the single-process step on the global batch
+(`make_train_step(..., global_batch=)`). With `--packed_input` the
+first rank of each host packs while the others wait at a barrier (the
+files are renamed into place whole, so hosts may share the directory).
+Rank 0 alone logs and writes the checkpoint after a barrier; it holds the unwrapped model, so a
+data-parallel checkpoint loads into one process and `--r` resumes on every
+rank.
 """
 
 from __future__ import annotations
@@ -36,11 +51,14 @@ import numpy as np
 import torch
 
 from ..data.imdb import combined_roidb
-from ..data.loader import RoiBatchLoader
+from ..data.loader import HostShardLoader, RoiBatchLoader
 from ..data.packed import PackedRoiBatchLoader, pack_timed
 from ..data.prefetch import AsyncLoader, device_prefetch, to_device
 from ..device import resolve_device
 from ..models import FasterRCNN
+from ..parallel.distributed import (GlobalBatch, add_dist_args, check_dist_args, first_on_host,
+                                    host_local_batch_slice, initialize)
+from ..parallel.mesh import replicate
 from ..utils.logging import (AveMeter, MetricsWriter, init_log, start_profiler_trace,
                              stop_profiler_trace)
 from .checkpoint import checkpoint_path, load_checkpoint, load_params, save_checkpoint
@@ -57,9 +75,7 @@ DATASET_MAP = {
     "imagenet": ("imagenet_train", "imagenet_val"),
     "vg": ("vg_1600-400-20_train", "vg_1600-400-20_val"),
 }
-_DIST = "it waits for ROADMAP §1 item 14 (torch.distributed)"
 WAITING_FLAGS = {
-    "--dist_coordinator": _DIST, "--dist_nprocs": _DIST, "--dist_rank": _DIST,
     "--aot_cache": "it is the JAX package's executable cache, which has no counterpart "
                    "(ROADMAP §1)",
 }
@@ -101,6 +117,7 @@ def parse_args(argv=None):
     p.add_argument("--skip_nonfinite", action="store_true",
                    help="skip optimizer updates whose gradients hold NaN or Inf")
     p.add_argument("--device", default="cuda")
+    add_dist_args(p)
     argv = sys.argv[1:] if argv is None else list(argv)
     refuse_waiting_flags(p, argv, WAITING_FLAGS, "trainval_net")
     args = p.parse_args(argv)
@@ -108,6 +125,7 @@ def parse_args(argv=None):
         # the JAX trainer parses --o and trains SGD whatever it says
         p.exit(2, "trainval_net: --o adam is refused: the JAX trainer this follows trains "
                   "SGD whatever --o says (ROADMAP §3, noted); pass --o sgd\n")
+    args.dist_plan = check_dist_args(p, args, "trainval_net", args.batch_size)
     return args
 
 
@@ -226,9 +244,19 @@ def rate_line(stats: dict) -> str:
 
 def main(argv=None) -> dict:
     """Returns {"step": the global step at the end, "epochs": each epoch's
-    `train_epochs` stats, "checkpoints": the paths written}."""
+    `train_epochs` stats (this rank's), "checkpoints": the paths written,
+    "world": the data-parallel `World` or None}."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    world = initialize(device=dev, backend=args.dist_backend, plan=args.dist_plan)
+    try:
+        return _train(args, world, dev if world is None else world.device)
+    finally:
+        if world is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, world, dev) -> dict:
     log = init_log("train")
     cfg = build_config(args.dataset, args.set_cfgs, large_scale=args.large_scale,
                        cfg_file=args.cfg_file, pooling_mode=args.pooling_mode)
@@ -240,7 +268,11 @@ def main(argv=None) -> dict:
     loader_kw = dict(scales=cfg.TRAIN.SCALES, max_num_gt=cfg.MAX_NUM_GT_BOXES,
                      seed=cfg.RNG_SEED)
     if args.packed_input:
-        pack_timed(roidb, cfg.TRAIN.SCALES, args.packed_input)
+        # one rank a host packs: the host's ranks share the directory
+        if first_on_host():
+            pack_timed(roidb, cfg.TRAIN.SCALES, args.packed_input)
+        if world is not None:
+            torch.distributed.barrier()
         loader = PackedRoiBatchLoader(roidb, ratio_list, ratio_index, args.batch_size,
                                       pack_root=args.packed_input, **loader_kw)
     else:
@@ -261,7 +293,8 @@ def main(argv=None) -> dict:
         lr_schedule=schedule, clip_norm=10.0 if backbone == "vgg16" else None)
     log.info(f"{args.net} on {dev}, compute {cfg.DTYPE}, tensors by label "
              f"{count_trainable(labels)}, {iters_per_epoch} steps an epoch at batch "
-             f"{args.batch_size}")
+             f"{args.batch_size}" + (f", data-parallel over {world.size} processes "
+                                     f"({world.backend})" if world else ""))
 
     global_step = 0
     if args.resume:
@@ -271,8 +304,15 @@ def main(argv=None) -> dict:
         args.start_epoch, global_step = int(meta["epoch"]) + 1, int(meta["step"])
         log.info(f"resumed from {path} at step {global_step}")
 
-    step_fn = make_train_step(model, opt, sched, skip_nonfinite=args.skip_nonfinite)
-    writer = MetricsWriter("logs") if args.use_tfb else None
+    if world is None:
+        step_fn = make_train_step(model, opt, sched, skip_nonfinite=args.skip_nonfinite)
+        train_loader = loader
+    else:
+        step_fn = make_train_step(replicate(model, dev), opt, sched,
+                                  skip_nonfinite=args.skip_nonfinite, global_batch=GlobalBatch())
+        train_loader = HostShardLoader(loader, *host_local_batch_slice(args.batch_size))
+    lead = world is None or world.rank == 0      # the rank that logs the global metrics
+    writer = MetricsWriter("logs") if args.use_tfb and lead else None
     trace_steps = int(args.profile) if args.profile else 0
     trace = start_profiler_trace(os.path.join("logs", "trace")) if trace_steps else None
     meters = {k: AveMeter() for k in LOSS_KEYS}
@@ -284,7 +324,7 @@ def main(argv=None) -> dict:
         if trace is not None and run_steps == trace_steps:
             log.info(f"profiler trace written to {stop_profiler_trace(trace)}")
             trace = None
-        if it % args.disp_interval == 0:
+        if lead and it % args.disp_interval == 0:
             m = {k: float(v) for k, v in metrics.items()}
             for k in meters:
                 meters[k].update(m[k])
@@ -300,19 +340,26 @@ def main(argv=None) -> dict:
 
     def on_epoch(epoch, step, stats):
         path = checkpoint_path(args.save_dir, args.net, args.dataset, args.session, epoch)
+        if world is not None:
+            torch.distributed.barrier()
         t0 = time.perf_counter()
-        save_checkpoint(path, model, opt, sched, session=args.session, epoch=epoch, step=step,
-                        pooling_mode=cfg.POOLING_MODE, class_agnostic=args.class_agnostic,
-                        extra={"classes": list(imdb_obj.classes)})
+        if world is None or world.rank == 0:
+            save_checkpoint(path, model, opt, sched, session=args.session, epoch=epoch,
+                            step=step, pooling_mode=cfg.POOLING_MODE,
+                            class_agnostic=args.class_agnostic,
+                            extra={"classes": list(imdb_obj.classes)})
         stats["save_ms"] = (time.perf_counter() - t0) * 1e3
+        if world is not None:
+            torch.distributed.barrier()      # the file is there before any rank goes on
         written.append(path)
-        log.info(rate_line(stats))
-        log.info(f"save model: {path} (epoch time {stats['wall_s']:.1f}s, save "
-                 f"{stats['save_ms']:.1f} ms)")
+        if lead:
+            log.info(rate_line(stats))
+            log.info(f"save model: {path} (epoch time {stats['wall_s']:.1f}s, save "
+                     f"{stats['save_ms']:.1f} ms)")
 
     try:
         global_step, history = train_epochs(
-            model, loader, step_fn, lambda step: step_draws(cfg.RNG_SEED, step, dev),
+            model, train_loader, step_fn, lambda step: step_draws(cfg.RNG_SEED, step, dev),
             start_epoch=args.start_epoch, epochs=args.epochs, global_step=global_step,
             num_workers=args.num_workers, on_step=on_step, on_epoch=on_epoch)
     finally:
@@ -320,7 +367,7 @@ def main(argv=None) -> dict:
             log.info(f"profiler trace written to {stop_profiler_trace(trace)}")
         if writer:
             writer.close()
-    return {"step": global_step, "epochs": history, "checkpoints": written}
+    return {"step": global_step, "epochs": history, "checkpoints": written, "world": world}
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ port's counterpart of the JAX package's `tools/trainval_rl.py`).
         [--ann_file A --dt_file D --data_dir I] [--save_dir S] [--epochs E] \
         [--batch_size 2] [--lr LR] [--layers 101] [--img_short N] [--img_size M] \
         [--max_stat_dets 5000] [--stat_workers 8] [--pretrained F] [--resume C] \
-        [-e --maxk K --wire bf16|f32] [--device cuda]
+        [-e --maxk K --wire bf16|f32] [--device cuda] \
+        [--dist_coordinator HOST:PORT --dist_nprocs N --dist_rank R]
 
 Builds the 56 actions of `RLConfig`, the ΔIoU-labelled `COCODataset` over
 the gt json and the detections json (its weight statistic over
@@ -29,6 +30,14 @@ and each epoch's rates, and writes `<save_dir>/rl_epoch_<epoch+1>.pth`
 COCO json `<save_dir>/rl_results.json` and `cocoval`. The JAX CLI draws one
 batch of epoch 0 to build its params before it evaluates, so its eval runs
 on epoch 1's item draws; the port does the same.
+
+Data parallel (torchrun's environment, or `--dist_*` as in `trainval_net`):
+every rank follows the same epoch-keyed plan and reads only its images of
+each global batch, on the global batch's canvas (`RLShardLoader`): a
+ragged final batch grows by zero-weight images to a multiple of the world,
+so every rank steps, and keeps the real batch's denominator; the model is
+replicated by DDP and rank 0 writes the checkpoints. `-e` runs on rank 0, as the JAX CLI evaluates on one device;
+the other ranks wait for it at a barrier and exit.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from ..data.rl_coco import COCODataLoader, COCODataset, COCOTransform
 from ..device import resolve_device
 from ..models.backbones.resnet import LAYER_SPECS
 from ..models.rl import Action, RLPolicyNet, warm_start_from_detector
+from ..parallel.distributed import GlobalBatch, add_dist_args, check_dist_args, initialize
+from ..parallel.mesh import replicate
 from ..utils.logging import AveMeter, init_log
 from .checkpoint import (load_checkpoint, load_params, read_checkpoint, save_checkpoint,
                          state_dict_from_jax)
@@ -87,9 +98,12 @@ def parse_args(argv=None):
     p.add_argument("--wire", default="bf16", choices=["bf16", "f32"],
                    help="eval image-blob dtype on the copy to the device")
     p.add_argument("--device", default="cuda")
+    add_dist_args(p)
     argv = sys.argv[1:] if argv is None else list(argv)
     refuse_waiting_flags(p, argv, WAITING_FLAGS, "trainval_rl")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    args.dist_plan = check_dist_args(p, args, "trainval_rl")
+    return args
 
 
 def build_config(args) -> RLConfig:
@@ -162,13 +176,86 @@ def train_arrays(batch: dict) -> dict:
             "num_dts": batch["num_dts"]}
 
 
+def shard_rl_batch(arrays: dict, rank: int, size: int) -> dict:
+    """A data-parallel rank's share of a step's arrays (`train_arrays`): a
+    ragged batch first grows by zero images (zero weights: no loss, no
+    gradient) to a multiple of `size`, then the rank takes its rows, their
+    bboxes' batch ids rebased to its own images (`rank_rows`).
+
+    The zero rows past an image's detections pool the zero box of the
+    rank's first image, where the single-process step pools the batch's
+    first image: their weights are 0, so the loss and its gradient do not
+    see it, only the logged unweighted term (`noweight`) where an image
+    has fewer detections than the batch's most."""
+    n = -(-arrays["data"].shape[0] // size)
+    mine = {k: v[rank * n:(rank + 1) * n] for k, v in arrays.items() if k != "num_dts"}
+    mine["bboxes"] = mine["bboxes"].copy()
+    mine["bboxes"][..., 0] = np.maximum(mine["bboxes"][..., 0] - rank * n, 0)
+    return rank_rows(mine, n, arrays["num_dts"], size)
+
+
+def rank_rows(arrays: dict, n: int, num_dts: np.ndarray, size: int) -> dict:
+    """A rank's real rows of a step's arrays (`train_arrays` less
+    `num_dts`, batch ids its own), grown by zero rows to `n`. `num_dts` is
+    the whole batch's (its max sets the loss's denominator), `images` the
+    real images / size (the denominator's B) and `image_mask` marks the real
+    images among the rank's rows."""
+    real = arrays["data"].shape[0]
+    out = {k: np.concatenate([v, np.zeros((n - real,) + v.shape[1:], v.dtype)])
+           for k, v in arrays.items()}
+    out["num_dts"] = num_dts
+    out["images"] = np.asarray(len(num_dts) / size, np.float32)
+    out["image_mask"] = np.arange(n) < real
+    return out
+
+
+class RLShardLoader:
+    """A data-parallel rank's view of a `COCODataLoader`: of every batch of
+    the shared, epoch-keyed plan the rank reads, resizes and collates only
+    its images, on the whole batch's canvas and detection axis
+    (`COCODataLoader.predict_job`: no image is read for it), and gives what
+    `shard_rl_batch` takes of the whole batch's `train_arrays`, to the bit.
+    Works with `trainval_net.train_epochs` (`set_epoch`, `batch_plan`,
+    `assemble_job`)."""
+
+    def __init__(self, loader: COCODataLoader, rank: int, size: int):
+        self.loader = loader
+        self.rank = rank
+        self.size = size
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def batch_plan(self):
+        plan = []
+        for epoch, idxs in self.loader.batch_plan():
+            n = -(-len(idxs) // self.size)
+            pad_hw, max_n, num_dts = self.loader.predict_job((epoch, idxs))
+            plan.append((epoch, idxs[self.rank * n:(self.rank + 1) * n], n, pad_hw, max_n,
+                         num_dts))
+        return plan
+
+    def assemble_job(self, job) -> dict:
+        epoch, mine, n, pad_hw, max_n, num_dts = job
+        batch = self.loader.collate([self.loader.item(epoch, i) for i in mine], pad_hw, max_n)
+        arrays = train_arrays(batch)
+        del arrays["num_dts"]
+        return rank_rows(arrays, n, num_dts, self.size)
+
+
 def train_loop(model, loader, opt, sched, *, start_epoch: int, max_epoch: int,
-               global_step: int = 0, num_workers: int = 0, log=None, on_epoch=None):
+               global_step: int = 0, num_workers: int = 0, log=None, on_epoch=None,
+               global_batch=None):
     """Epochs `start_epoch..max_epoch-1` (0-based) of `rl_train_step` over
     `loader` through `train_epochs`, logging every LOG_EVERY iterations as
     the JAX CLI does (loss and noweight of that step, read from the card
     only there; batch and data the host's seconds a step and waiting for a
     batch, averaged over the last 20). `on_epoch(epoch, global_step, stats)` runs after each epoch.
+    Data parallel: `model` is the DDP-wrapped net, `loader` the rank's
+    `RLShardLoader` and `global_batch` the group's `GlobalBatch`.
     Returns (global_step, [stats of each epoch], [(epoch, it, loss,
     noweight) of each logged step])."""
     log = log or init_log("rl")
@@ -178,8 +265,12 @@ def train_loop(model, loader, opt, sched, *, start_epoch: int, max_epoch: int,
 
     def step_fn(batch, generator, dropout):
         mark["start"] = time.perf_counter()
+        dp = {} if global_batch is None else {
+            "global_batch": global_batch, "images": batch["images"],
+            "image_mask": batch["image_mask"]}
         loss, noweight = rl_train_step(model, opt, sched, batch["data"], batch["bboxes"],
-                                       batch["targets"], batch["weights"], batch["num_dts"])
+                                       batch["targets"], batch["weights"], batch["num_dts"],
+                                       **dp)
         return {"loss": loss, "noweight": noweight}
 
     def on_step(epoch, it, step, metrics):
@@ -203,17 +294,28 @@ def train_loop(model, loader, opt, sched, *, start_epoch: int, max_epoch: int,
     global_step, history = train_epochs(
         model, loader, step_fn, lambda step: (None, None), start_epoch=start_epoch,
         epochs=max_epoch - 1, global_step=global_step, num_workers=num_workers,
-        on_step=on_step, on_epoch=epoch_done, select=train_arrays)
+        on_step=on_step, on_epoch=epoch_done,
+        select=train_arrays if global_batch is None else None)
     return global_step, history, logged
 
 
 def main(argv=None, num_workers: int | None = None) -> dict:
     """Train (returns {"step", "epochs": each epoch's `train_epochs` stats,
     "checkpoints", "logged": (epoch, it, loss, noweight) of each logged
-    step}) or, with `-e`, evaluate (returns `rl_evaluate`'s dict).
-    `num_workers` assembly threads (default `RLConfig.num_workers`)."""
+    step}) or, with `-e`, evaluate (returns `rl_evaluate`'s dict; on a
+    data-parallel rank other than 0, {}). `num_workers` assembly threads
+    (default `RLConfig.num_workers`)."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    world = initialize(device=dev, backend=args.dist_backend, plan=args.dist_plan)
+    try:
+        return _run(args, world, dev if world is None else world.device, num_workers)
+    finally:
+        if world is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, world, dev, num_workers) -> dict:
     log = init_log("rl")
     cfg = build_config(args)
     save_dir = args.save_dir or cfg.save_dir
@@ -233,6 +335,9 @@ def main(argv=None, num_workers: int | None = None) -> dict:
     log.info(f"RL policy net resnet{args.layers} on {dev}, f32, batch {args.batch_size}, "
              f"{len(loader)} steps an epoch")
 
+    if args.evaluate and world is not None and world.rank != 0:
+        torch.distributed.barrier()          # rank 0 evaluates, as on one device
+        return {}
     if args.evaluate:
         if args.resume:
             load_checkpoint(rl_checkpoint(args.resume), model)
@@ -240,9 +345,12 @@ def main(argv=None, num_workers: int | None = None) -> dict:
         # the JAX CLI draws epoch 0's first batch to build its params, so
         # its eval runs on epoch 1's item draws
         loader.set_epoch(1)
-        return rl_evaluate(model, loader, action, args.maxk, wire=args.wire,
-                           res_file=os.path.join(save_dir, "rl_results.json"),
-                           ann_file=cfg.ann_file, num_workers=workers, log=log)
+        result = rl_evaluate(model, loader, action, args.maxk, wire=args.wire,
+                             res_file=os.path.join(save_dir, "rl_results.json"),
+                             ann_file=cfg.ann_file, num_workers=workers, log=log)
+        if world is not None:
+            torch.distributed.barrier()
+        return result
 
     opt, sched = make_rl_optimizer(model, cfg, len(loader))
     start_epoch, global_step = 0, 0
@@ -255,18 +363,28 @@ def main(argv=None, num_workers: int | None = None) -> dict:
 
     def on_epoch(epoch, step, stats):
         path = os.path.join(save_dir, f"rl_epoch_{epoch + 1}.pth")
+        if world is not None:
+            torch.distributed.barrier()
         t0 = time.perf_counter()
-        save_checkpoint(path, model, opt, sched, epoch=epoch + 1, step=step,
-                        extra={"kind": "rl", "layers": args.layers,
-                               "num_acts": action.num_acts})
+        if world is None or world.rank == 0:
+            save_checkpoint(path, model, opt, sched, epoch=epoch + 1, step=step,
+                            extra={"kind": "rl", "layers": args.layers,
+                                   "num_acts": action.num_acts})
         stats["save_ms"] = (time.perf_counter() - t0) * 1e3
+        if world is not None:
+            torch.distributed.barrier()
         written.append(path)
         log.info(rate_line(stats))
         log.info(f"saved {path} (save {stats['save_ms']:.1f} ms)")
 
+    trained = model
+    if world is not None:
+        trained, loader = replicate(model, dev), RLShardLoader(loader, world.rank, world.size)
     global_step, history, logged = train_loop(
-        model, loader, opt, sched, start_epoch=start_epoch, max_epoch=max_epoch,
-        global_step=global_step, num_workers=workers, log=log, on_epoch=on_epoch)
+        trained, loader, opt, sched,
+        start_epoch=start_epoch, max_epoch=max_epoch, global_step=global_step,
+        num_workers=workers, log=log, on_epoch=on_epoch,
+        global_batch=None if world is None else GlobalBatch())
     return {"step": global_step, "epochs": history, "checkpoints": written, "logged": logged}
 
 

@@ -28,9 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.layer1_kernel import fused_layer1
-from ...ops.res_stage_kernel import fused_res_stage
-from ...ops.stem_kernel import fused_stem
+from ...ops.layer1_kernel import fused_layer1, packed_layer1
+from ...ops.pack_cache import PinnedPacks
+from ...ops.res_stage_kernel import fused_res_stage, packed_res_stage
+from ...ops.stem_kernel import fused_stem, packed_stem
 
 LAYER_SPECS = {
     18: (2, 2, 2, 2),
@@ -176,6 +177,37 @@ class ResNetBase(nn.Module):
         self.layer3 = ResLayer(512, 256, specs[2], 2)
         for frozen in (self.conv1, self.layer1, self.layer2, self.layer3)[:1 + min(frozen_stages, 3)]:
             frozen.requires_grad_(False)
+        self.pinned = None
+
+    def pin_packs(self) -> None:
+        """Pack the operands of every kernel the eval forward
+        (`fwd_only=True`) runs, once, and hold them as buffers
+        (`ops/pack_cache.py::PinnedPacks`) that the forward then reads
+        instead of its caches: what `torch.export` needs, since it cannot
+        key a cache on a traced tensor's storage. Weights edited after this
+        are not repacked."""
+        with torch.no_grad():
+            self.pinned = PinnedPacks(self._packs())
+
+    def _packs(self) -> dict:
+        dev = self.conv1.weight.device
+        packs = {}
+        if self.conv1_fused:
+            bn = self.bn1
+            packs["stem"] = packed_stem(self.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var,
+                                        self.dtype, dev)
+            if self.layer1_fused:
+                packs["layer1"] = packed_layer1(self.layer1, self.dtype, dev)
+        for n, layer in ((2, self.layer2), (3, self.layer3)):
+            if str(n) in str(self.stages_fused):
+                packs[f"layer{n}"] = packed_res_stage(layer, layer.blocks, layer.planes,
+                                                      self.dtype, dev)
+        return packs
+
+    def _pinned(self, name: str) -> dict:
+        """The `packed=` argument of a kernel wrapper where `pin_packs` ran
+        (else none: the wrapper packs and caches)."""
+        return {} if self.pinned is None else {"packed": self.pinned.get(name)}
 
     def _cut(self, x: torch.Tensor, stage: int) -> torch.Tensor:
         return x.detach() if min(self.frozen_stages, 3) == stage else x
@@ -186,18 +218,21 @@ class ResNetBase(nn.Module):
         if not fuse:
             return layer(x)
         xs = nchw_to_nhwc(x)[:, ::2, ::2].contiguous()
-        return nhwc_to_nchw(fused_res_stage(xs, layer, blocks=layer.blocks,
-                                            width=layer.planes, dtype=self.dtype))
+        name = "layer2" if layer is self.layer2 else "layer3"
+        return nhwc_to_nchw(fused_res_stage(xs, layer, blocks=layer.blocks, width=layer.planes,
+                                            dtype=self.dtype, **self._pinned(name)))
 
     def forward(self, x: torch.Tensor, fwd_only: bool = False) -> torch.Tensor:
         fuse = lambda n: self.frozen_stages >= n or fwd_only
         if self.conv1_fused:
             bn = self.bn1
             x = fused_stem(x.contiguous(), self.conv1.weight, bn.scale, bn.bias,
-                           bn.mean, bn.var, dtype=self.dtype)      # NHWC
+                           bn.mean, bn.var, dtype=self.dtype,
+                           **self._pinned("stem"))                  # NHWC
             x = nhwc_to_nchw(self._cut(x, 0))
             if self.layer1_fused and fuse(1):
-                x = nhwc_to_nchw(fused_layer1(nchw_to_nhwc(x), self.layer1, dtype=self.dtype))
+                x = nhwc_to_nchw(fused_layer1(nchw_to_nhwc(x), self.layer1, dtype=self.dtype,
+                                              **self._pinned("layer1")))
             else:
                 x = self.layer1(x)
         else:

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.vgg_block1_kernel import fused_vgg_block1
+from ...ops.pack_cache import PinnedPacks
+from ...ops.vgg_block1_kernel import fused_vgg_block1, packed_vgg_block1
 from ..targets import Uniform
 from .resnet import Dense, conv, nchw_to_nhwc, nhwc_to_nchw
 
@@ -50,12 +51,25 @@ class VGGBase(nn.Module):
                 layer = conv(cin, ch, 3, bias=True).requires_grad_(block > frozen_blocks)
                 setattr(self, f"conv{block}_{i}", layer)
                 cin = ch
+        self.pinned = None
+
+    def pin_packs(self) -> None:
+        """Pack block 1's kernel operands once and hold them as buffers, as
+        `ResNetBase.pin_packs` does (for `torch.export`)."""
+        packs = {}
+        if self.conv1_fused:
+            c1, c2 = self.conv1_1, self.conv1_2
+            with torch.no_grad():
+                packs["block1"] = packed_vgg_block1(c1.weight, c1.bias, c2.weight, c2.bias,
+                                                    self.dtype, c1.weight.device)
+        self.pinned = PinnedPacks(packs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.conv1_fused:
             c1, c2 = self.conv1_1, self.conv1_2
+            pinned = {} if self.pinned is None else {"packed": self.pinned.get("block1")}
             x = nhwc_to_nchw(fused_vgg_block1(x.contiguous(), c1.weight, c1.bias, c2.weight,
-                                              c2.bias, dtype=self.dtype))
+                                              c2.bias, dtype=self.dtype, **pinned))
         else:
             x = nhwc_to_nchw(x.to(self.dtype))
         for block, n_convs, _ in VGG16_CFG:

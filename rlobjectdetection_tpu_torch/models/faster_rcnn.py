@@ -49,6 +49,9 @@ class TinyBase(nn.Module):
         for i in range(4):
             setattr(self, f"stem{i}", conv(3 if i == 0 else 64, 64, 3, stride=2, bias=True))
 
+    def pin_packs(self) -> None:
+        """No kernel runs here, so nothing is packed (`ResNetBase.pin_packs`)."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = nhwc_to_nchw((x * (1.0 / 128.0)).to(self.dtype))
         for i in range(4):
@@ -161,7 +164,8 @@ class FasterRCNN(nn.Module):
         return cls_prob.reshape(b, r, -1), bbox_pred.reshape(b, r, -1)
 
     def forward(self, im_data: torch.Tensor, im_info: torch.Tensor, gt_boxes=None,
-                num_boxes=None, *, train: bool = False, generator=None, dropout=None):
+                num_boxes=None, *, train: bool = False, generator=None, dropout=None,
+                global_batch=None):
         """im_data `[B, H, W, 3]` (BGR, pixel means subtracted); im_info
         `[B, 3]` (h, w, scale). Eval (no gradient) returns {rois, roi_valid,
         cls_prob, bbox_pred}. Train takes gt_boxes `[B, G, 5]` (x1, y1, x2,
@@ -172,7 +176,14 @@ class FasterRCNN(nn.Module):
         dropout draws from `dropout` (a Generator or a source), by default
         from `generator` itself, after the sampling draws; the ResNet head
         draws none. num_boxes is unused (the zero rows mark the padding), as
-        in the JAX model."""
+        in the JAX model.
+
+        A data-parallel rank passes its rows of the batch and the group's
+        `parallel.distributed.GlobalBatch` as `global_batch`: it then draws
+        the global batch's uniforms and keeps its rows, bounds the anchors
+        by the global first image, and divides the RPN's cross-entropy by
+        its share of the global count of sampled anchors, so that the
+        ranks' mean loss and gradient are the global batch's."""
         if not train:
             # eval takes no gradient, so the frozen-stage kernels
             # (STAGE_FUSED) engage whatever FIXED_BLOCKS says, as in the JAX
@@ -192,17 +203,21 @@ class FasterRCNN(nn.Module):
             raise ValueError("the train forward needs gt_boxes and a generator")
         sampling = uniform_source(generator, im_data.device)
         drop = sampling if dropout is None else uniform_source(dropout, im_data.device)
-        return self._train_forward(im_data, im_info, gt_boxes, sampling, drop)
+        if global_batch is not None:
+            sampling, drop = global_batch.uniform(sampling), global_batch.uniform(drop)
+        return self._train_forward(im_data, im_info, gt_boxes, sampling, drop, global_batch)
 
-    def _train_forward(self, im_data, im_info, gt_boxes, uniform, dropout):
+    def _train_forward(self, im_data, im_info, gt_boxes, uniform, dropout, global_batch=None):
         c, t = self.cfg, self.cfg.TRAIN
         b, a = im_data.shape[0], self.num_anchors
         base_feat = self.base(im_data)
         rpn_cls, rpn_delta = self.rpn(base_feat)
         rois, _, _ = self._propose(rpn_cls, rpn_delta, im_info, t)
 
+        # the anchors' bounds are the batch's first image's (a JAX quirk kept)
+        bounds = im_info if global_batch is None else global_batch.first_row(im_info)
         at = anchor_target(
-            uniform, tuple(base_feat.shape[1:3]), gt_boxes, im_info,
+            uniform, tuple(base_feat.shape[1:3]), gt_boxes, bounds,
             feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
             anchor_ratios=c.ANCHOR_RATIOS, rpn_batch_size=t.RPN_BATCHSIZE,
             fg_fraction=t.RPN_FG_FRACTION, positive_overlap=t.RPN_POSITIVE_OVERLAP,
@@ -210,7 +225,10 @@ class FasterRCNN(nn.Module):
         # the RPN's 2-way logits per anchor, in the targets' (h, w, a) order
         logits2 = torch.stack([rpn_cls[..., :a].reshape(b, -1),
                                rpn_cls[..., a:].reshape(b, -1)], dim=-1)
-        rpn_loss_cls = softmax_cross_entropy(logits2, at.labels.clamp_min(0), at.labels >= 0)
+        sampled = at.labels >= 0
+        rpn_loss_cls = softmax_cross_entropy(
+            logits2, at.labels.clamp_min(0), sampled,
+            denom=None if global_batch is None else global_batch.count_share(sampled.sum()))
         rpn_loss_box = smooth_l1_loss(rpn_delta.float().reshape(b, -1, 4), at.bbox_targets,
                                       at.bbox_inside_weights, at.bbox_outside_weights,
                                       sigma=3.0, reduce_dims=(1, 2))

@@ -19,16 +19,18 @@ def smooth_l1_loss(bbox_pred, bbox_targets, bbox_inside_weights, bbox_outside_we
     return (bbox_outside_weights * in_loss).sum(dim=tuple(reduce_dims)).mean()
 
 
-def softmax_cross_entropy(logits, labels, valid_mask=None):
+def softmax_cross_entropy(logits, labels, valid_mask=None, denom=None):
     """Mean cross-entropy of `[..., C]` logits (log-softmax in f32) at int
     `labels` `[...]`; with `valid_mask` `[...]` bool, the mean over the
-    valid entries (at least 1 in the denominator)."""
+    valid entries (at least 1 in the denominator). `denom` replaces that
+    count: a data-parallel rank passes its share of the global batch's
+    (`parallel.distributed.GlobalBatch.count_share`)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if valid_mask is None:
         return -ll.mean()
     valid = valid_mask.float()
-    return -(ll * valid).sum() / valid.sum().clamp_min(1.0)
+    return -(ll * valid).sum() / (valid.sum().clamp_min(1.0) if denom is None else denom)
 
 
 def weighted_mse_loss(pred, targets, weights, denom=None, row_mask=None):

@@ -50,11 +50,18 @@ class RLPolicyNet(nn.Module):
                         mod.bias.zero_()
         self.to(dev)
 
-    def forward(self, img, bboxes, targets=None, weights=None, num_dts=None):
+    def forward(self, img, bboxes, targets=None, weights=None, num_dts=None, *,
+                images=None, image_mask=None):
         """img `[B, H, W, 3]` normalised RGB; bboxes `[B, N, 5+]` (batch_id,
         x1, y1, x2, y2, ...); targets / weights `[B, N, num_acts]`; num_dts
-        `[B]` true detection counts, which set the loss's denominator to
-        B · max(num_dts) · A and mask the padded rows.
+        true detection counts, whose max sets the loss's denominator to
+        B · max(num_dts) · A and masks the padded rows.
+
+        A data-parallel rank passes the global batch's `num_dts`, `images`
+        = the global batch's images / the world size in place of B, and
+        `image_mask` `[B]` (False on the zero images that pad a ragged
+        batch to the world), so that the ranks' mean loss is the global
+        batch's.
 
         Returns (pred `[B·N, num_acts]` f32, loss, noweight loss); the loss
         terms are 0 without targets."""
@@ -71,11 +78,14 @@ class RLPolicyNet(nn.Module):
         denom = row_mask = None
         if num_dts is not None:
             max_true = torch.clamp(num_dts.max(), min=1)
-            denom = img.shape[0] * self.num_acts * max_true
+            denom = (img.shape[0] if images is None else images) * self.num_acts * max_true
             # rows past the exact batch max exist only because of the
             # collate's padding to a multiple of 16
             slot_ok = torch.arange(bboxes.shape[1], device=pred.device) < max_true
-            row_mask = slot_ok.repeat(img.shape[0])
+            if image_mask is None:
+                row_mask = slot_ok.repeat(img.shape[0])
+            else:
+                row_mask = (image_mask[:, None] & slot_ok[None, :]).reshape(-1)
         loss, noweight = weighted_mse_loss(pred, t, w, denom=denom, row_mask=row_mask)
         return pred, loss, noweight
 

@@ -5,12 +5,13 @@ Counterpart of `rlobjectdetection_tpu/ops/layer1_pallas.py::fused_layer1`.
 BN is folded into the conv weights as in its `_pack_params` (f32 fold, then
 one cast to the compute dtype); only the BN adds remain, kept in f32. The
 packing is the residual stage's (`pack_res_stage` at width 64, weights
-[N][K]), and so is the plain version. On a CUDA tensor `fused_layer1`
-launches `csrc/layer1.cu` once per block; on a CPU tensor it runs
-`layer1_plain`, the same arithmetic in plain PyTorch, which is also what the
-kernel is held against on the card. The packed weights are cached on the
-layer module per dtype and device, and packed again only when a weight of
-the layer changes.
+[N][K]), and so is the plain version. `fused_layer1` calls the op
+`rlod::layer1` (`ops/library.py`): on a CUDA tensor it launches
+`csrc/layer1.cu` once per block, on a CPU tensor it runs `layer1_plain`,
+the same arithmetic in plain PyTorch, which is also what the kernel is
+held against on the card. The packed weights are cached on the layer
+module per dtype and device, and packed again only when a weight of the
+layer changes; a caller that holds them passes them as `packed`.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from . import _build
 from .guards import forward_only
 from .pack_cache import cached_pack
-from .res_stage_kernel import pack_res_stage, packed_on, res_stage_plain
+from .res_stage_kernel import flat_blocks, pack_res_stage, packed_on, res_stage_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -97,21 +98,21 @@ def layer1_info(dtype: torch.dtype) -> dict:
 
 
 def fused_layer1(x: torch.Tensor, layer, *, dtype=torch.bfloat16,
-                 eps: float = 1e-5) -> torch.Tensor:
+                 eps: float = 1e-5, packed=None) -> torch.Tensor:
     """Run the frozen layer1 stage. x `[B, H, W, 64]` NHWC in `dtype` (the
     stem's output); layer: the module holding `block0..2`. Returns
     `[B, H, W, 256]` NHWC in `dtype`. Forward only: raises where autograd
-    would need its gradient (`guards.forward_only`)."""
+    would need its gradient (`guards.forward_only`). `packed`:
+    `packed_layer1`'s operands, where the caller holds them."""
     forward_only("fused_layer1", [x, *layer.parameters()])
     if dtype not in _DTYPES:
         raise ValueError(f"fused_layer1: unsupported dtype {dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_layer1: unsupported device {x.device}")
     with torch.no_grad():
-        packed = packed_layer1(layer, dtype, x.device, eps)
-        if x.device.type == "cpu":
-            return layer1_plain(x, packed, dtype)
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_layer1: unsupported device {x.device}")
-        return launch_layer1(x, packed, dtype)
+        if packed is None:
+            packed = packed_layer1(layer, dtype, x.device, eps)
+        return torch.ops.rlod.layer1(x, flat_blocks(packed), dtype)
 
 
 fused_layer1.launches = 0

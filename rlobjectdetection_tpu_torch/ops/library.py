@@ -1,0 +1,169 @@
+"""The port's kernels as `torch.library` custom ops, namespace `rlod`.
+
+Each op takes the kernel's packed operands (packed weights as `Tensor` or
+`Tensor?[]`) and has two implementations, chosen by its input's device:
+on a CUDA tensor the hand-written kernel (`csrc/*.cu` through the ctypes
+launches of `ops/*_kernel.py`), on a CPU tensor the plain PyTorch version
+of the same arithmetic. A `register_fake` gives each output's shape and
+dtype, so `torch.export` traces a model through the ops as opaque calls
+and an exported program launches the same kernels. `rlod::roi_align_avg`
+carries its backward (`rlod::roi_align_avg_bwd`, a kernel too).
+`rlod::nms_sorted_mask` is the NMS loop of `ops/nms.py`, opaque because it
+waits on the host between its steps (no kernel: ROADMAP §2 item 12).
+
+Importing this module registers the ops; it imports no model code, so a
+program exported with the ops replays after `import
+rlobjectdetection_tpu_torch.ops.library` alone. The kernel wrappers
+(`fused_stem`, `fused_layer1`, `fused_res_stage`, `fused_vgg_block1`,
+`roi_align_avg`) call these ops, and each kernel's launch count lives on
+its wrapper as before.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from . import layer1_kernel, res_stage_kernel, roi_align_kernel, stem_kernel, vgg_block1_kernel
+from .nms import _nms_sorted_mask
+from .res_stage_kernel import blocks_of
+from .vgg_block1_kernel import VGG_KEYS
+
+# each kernel's wrapper, which counts its launches (`.launches`)
+WRAPPERS = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+            "roi_align_avg": roi_align_kernel.roi_align_avg,
+            "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
+            "vgg_block1": vgg_block1_kernel.fused_vgg_block1,
+            "res_stage": res_stage_kernel.fused_res_stage}
+
+
+# -- the stem ------------------------------------------------------------------
+
+
+@torch.library.custom_op("rlod::stem", mutates_args=(), device_types="cpu")
+def stem(x: torch.Tensor, w: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    return stem_kernel.stem_plain_packed(x, (w, mul, add), dtype)
+
+
+@stem.register_kernel("cuda")
+def _(x, w, mul, add, dtype):
+    return stem_kernel.launch_stem(x, (w, mul, add), dtype)
+
+
+@stem.register_fake
+def _(x, w, mul, add, dtype):
+    b, h, wd, _ = x.shape
+    _, _, ph, pw = stem_kernel.stem_out_shapes(h, wd)
+    return x.new_empty((b, ph, pw, 64), dtype=dtype)
+
+
+# -- layer1 and the residual stage ---------------------------------------------
+
+
+@torch.library.custom_op("rlod::layer1", mutates_args=(), device_types="cpu")
+def layer1(x: torch.Tensor, packs: List[Optional[torch.Tensor]],
+           dtype: torch.dtype) -> torch.Tensor:
+    return layer1_kernel.layer1_plain(x, blocks_of(packs), dtype)
+
+
+@layer1.register_kernel("cuda")
+def _(x, packs, dtype):
+    return layer1_kernel.launch_layer1(x, blocks_of(packs), dtype)
+
+
+@layer1.register_fake
+def _(x, packs, dtype):
+    return x.new_empty((*x.shape[:3], 256), dtype=dtype)
+
+
+@torch.library.custom_op("rlod::res_stage", mutates_args=(), device_types="cpu")
+def res_stage(x: torch.Tensor, packs: List[Optional[torch.Tensor]],
+              dtype: torch.dtype) -> torch.Tensor:
+    return res_stage_kernel.res_stage_plain(x, blocks_of(packs), dtype)
+
+
+@res_stage.register_kernel("cuda")
+def _(x, packs, dtype):
+    return res_stage_kernel.launch_res_stage(x, blocks_of(packs), dtype)
+
+
+@res_stage.register_fake
+def _(x, packs, dtype):
+    return x.new_empty((*x.shape[:3], 4 * packs[0].shape[0]), dtype=dtype)
+
+
+# -- VGG-16 block 1 ------------------------------------------------------------
+
+
+@torch.library.custom_op("rlod::vgg_block1", mutates_args=(), device_types="cpu")
+def vgg_block1(x: torch.Tensor, packs: List[Optional[torch.Tensor]],
+               dtype: torch.dtype) -> torch.Tensor:
+    return vgg_block1_kernel.vgg_block1_plain_packed(x, dict(zip(VGG_KEYS, packs)), dtype)
+
+
+@vgg_block1.register_kernel("cuda")
+def _(x, packs, dtype):
+    return vgg_block1_kernel.launch_vgg_block1(x, dict(zip(VGG_KEYS, packs)), dtype)
+
+
+@vgg_block1.register_fake
+def _(x, packs, dtype):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h // 2, w // 2, 64), dtype=dtype)
+
+
+# -- RoIAlignAvg, forward and backward ---------------------------------------------
+
+
+@torch.library.custom_op("rlod::roi_align_avg", mutates_args=())
+def roi_align_avg(features: torch.Tensor, rois: torch.Tensor, pooled_size: int,
+                  spatial_scale: float) -> torch.Tensor:
+    return roi_align_kernel._forward(features, rois, pooled_size, spatial_scale)
+
+
+@roi_align_avg.register_fake
+def _(features, rois, pooled_size, spatial_scale):
+    return features.new_empty((rois.shape[0], pooled_size, pooled_size, features.shape[-1]))
+
+
+@torch.library.custom_op("rlod::roi_align_avg_bwd", mutates_args=())
+def roi_align_avg_bwd(grad: torch.Tensor, rois: torch.Tensor, feat_shape: List[int],
+                      spatial_scale: float) -> torch.Tensor:
+    return roi_align_kernel.roi_align_avg_bwd(grad, rois, tuple(feat_shape), spatial_scale)
+
+
+@roi_align_avg_bwd.register_fake
+def _(grad, rois, feat_shape, spatial_scale):
+    return grad.new_empty(tuple(feat_shape))
+
+
+def _roi_setup(ctx, inputs, output):
+    features, rois, _, spatial_scale = inputs
+    ctx.save_for_backward(rois)
+    ctx.feat_shape = list(features.shape)
+    ctx.spatial_scale = spatial_scale
+
+
+def _roi_backward(ctx, grad):
+    (rois,) = ctx.saved_tensors
+    dfeat = roi_align_avg_bwd(grad.contiguous(), rois, ctx.feat_shape, ctx.spatial_scale)
+    return dfeat, None, None, None
+
+
+roi_align_avg.register_autograd(_roi_backward, setup_context=_roi_setup)
+
+
+# -- NMS -------------------------------------------------------------------------
+
+
+@torch.library.custom_op("rlod::nms_sorted_mask", mutates_args=())
+def nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+                    tile_size: int, max_keep: Optional[int]) -> torch.Tensor:
+    return _nms_sorted_mask(boxes, valid, iou_threshold, tile_size, max_keep)
+
+
+@nms_sorted_mask.register_fake
+def _(boxes, valid, iou_threshold, tile_size, max_keep):
+    return valid.new_empty(valid.shape, dtype=torch.bool)

@@ -38,7 +38,17 @@ def nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: flo
                     tile_size: int = 256, max_keep: int | None = None) -> torch.Tensor:
     """Greedy keep-mask `[..., N]` for boxes `[..., N, 4]` already sorted by
     descending score. With `max_keep`, tiles stop once every batch lane has
-    kept that many boxes: the first `max_keep` survivors are final then."""
+    kept that many boxes: the first `max_keep` survivors are final then.
+    Runs as the op `rlod::nms_sorted_mask` (`ops/library.py`): its loop
+    waits on the host between steps, so `torch.export` keeps it opaque."""
+    return torch.ops.rlod.nms_sorted_mask(boxes, valid, float(iou_threshold), int(tile_size),
+                                          max_keep)
+
+
+def _nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
+                     tile_size: int, max_keep: int | None) -> torch.Tensor:
+    """`nms_sorted_mask`'s body: Jacobi steps within a tile, tiles in score
+    order, each step's convergence and each tile's stop read on the host."""
     n = boxes.shape[-2]
     small = n <= 2 * tile_size
     tile = max(n, 1) if small else tile_size

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Callable, Iterable
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 
 def cached_pack(holder, attr: str, slot, extra, tensors: Iterable[torch.Tensor],
@@ -29,3 +30,34 @@ def cached_pack(holder, attr: str, slot, extra, tensors: Iterable[torch.Tensor],
 
 
 cached_pack.packs = 0   # cache misses, for the tests
+
+
+class PinnedPacks(torch.nn.Module):
+    """Packed kernel operands held as non-persistent buffers: a model
+    exported with `torch.export` carries them in its artifact, so a replay
+    packs nothing. `PinnedPacks({name: operands})` takes each kernel's
+    operands as its `packed_*` function returns them (a tuple, a dict or a
+    list of dicts, None where a block has no such operand); `get(name)`
+    gives them back in that structure. A snapshot: packs pinned before a
+    weight changes do not follow it."""
+
+    def __init__(self, packs: dict):
+        super().__init__()
+        self._specs = {}
+        for name, value in packs.items():
+            leaves, spec = tree_flatten(value)
+            slots = []
+            for i, leaf in enumerate(leaves):
+                if leaf is None:
+                    slots.append(None)
+                else:
+                    self.register_buffer(f"{name}_{i}", leaf, persistent=False)
+                    slots.append(f"{name}_{i}")
+            self._specs[name] = (slots, spec)
+
+    def get(self, name: str):
+        """The operands pinned under `name`, or None where none are."""
+        if name not in self._specs:
+            return None
+        slots, spec = self._specs[name]
+        return tree_unflatten([None if s is None else getattr(self, s) for s in slots], spec)

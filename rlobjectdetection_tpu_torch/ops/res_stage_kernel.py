@@ -72,6 +72,22 @@ def pack_res_stage(layer, blocks: int, width: int, dtype: torch.dtype,
     return packed
 
 
+BLOCK_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "wd", "stream")
+
+
+def flat_blocks(packed: list[dict]) -> list:
+    """A stage's packed blocks (`pack_res_stage`'s dicts) as the ops' flat
+    `Tensor?[]` (`rlod::layer1`, `rlod::res_stage`): BLOCK_KEYS of each
+    block in order, None where absent."""
+    return [pk.get(k) for pk in packed for k in BLOCK_KEYS]
+
+
+def blocks_of(flat) -> list[dict]:
+    """`flat_blocks`' inverse."""
+    n = len(BLOCK_KEYS)
+    return [dict(zip(BLOCK_KEYS, flat[i:i + n])) for i in range(0, len(flat), n)]
+
+
 def packed_on(packed: list[dict], device) -> list[dict]:
     """Each block's packed operands moved to `device`."""
     return [{k: None if v is None else v.to(device) for k, v in pk.items()} for pk in packed]
@@ -254,24 +270,27 @@ def res_stage_info(dtype: torch.dtype) -> dict:
 
 
 def fused_res_stage(x: torch.Tensor, layer, *, blocks: int, width: int,
-                    dtype: torch.dtype = torch.bfloat16, eps: float = 1e-5) -> torch.Tensor:
+                    dtype: torch.dtype = torch.bfloat16, eps: float = 1e-5,
+                    packed=None) -> torch.Tensor:
     """Run a frozen residual stage on an ALREADY-STRIDED NHWC input.
 
     x `[B, Ho, Wo, Cin]` in `dtype`; layer: the module holding
     `block0..block{blocks-1}` of width `width`. Returns `[B, Ho, Wo, 4*width]`
     NHWC in `dtype`. Forward only, as the TPU kernel is: it raises where
     autograd would need its gradient (grad enabled and `x` or a weight of the
-    stage requires grad)."""
+    stage requires grad). It runs as the op `rlod::res_stage`
+    (`ops/library.py`): the kernel on a CUDA tensor, `res_stage_plain` on a
+    CPU tensor. `packed`: `packed_res_stage`'s operands, where the caller
+    holds them."""
     forward_only("fused_res_stage", [x, *layer.parameters()])
     if dtype not in _DTYPES:
         raise ValueError(f"fused_res_stage: unsupported dtype {dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_res_stage: unsupported device {x.device}")
     with torch.no_grad():
-        packed = packed_res_stage(layer, blocks, width, dtype, x.device, eps)
-        if x.device.type == "cpu":
-            return res_stage_plain(x, packed, dtype)
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_res_stage: unsupported device {x.device}")
-        return launch_res_stage(x, packed, dtype)
+        if packed is None:
+            packed = packed_res_stage(layer, blocks, width, dtype, x.device, eps)
+        return torch.ops.rlod.res_stage(x, flat_blocks(packed), dtype)
 
 
 fused_res_stage.launches = 0

@@ -7,9 +7,10 @@ roi_align_fwd_pallas` + `roi_align_avg_pallas` (forward) and of
 ALIGN_IMPL computes this same function, so on a CUDA tensor the port's
 RoIAlignAvg is the hand-written kernels of `csrc/roi_align.cu` whatever
 ALIGN_IMPL says; on a CPU tensor it is the plain `ops/roi_align.py`
-versions. `roi_align_avg` is an autograd Function: the forward kernel, then
-`roi_align_avg_bwd` for the features' gradient; the rois take none. Each
-counts its own launches (`roi_align_avg.launches`, `roi_align_avg_bwd.launches`).
+versions. `roi_align_avg` is the op `rlod::roi_align_avg` (`ops/library.py`)
+with its autograd: the forward kernel, then `roi_align_avg_bwd` for the
+features' gradient; the rois take none. Each counts its own launches
+(`roi_align_avg.launches`, `roi_align_avg_bwd.launches`).
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.autograd.function import once_differentiable
-
 from . import _build
 from .roi_align import roi_align_avg as roi_align_avg_plain
 from .roi_align import roi_align_avg_backward
@@ -118,22 +117,6 @@ def roi_align_bwd_info(dtype: torch.dtype) -> dict:
     return dict(zip(("registers", "smem_bytes", "ctas_per_sm", "spill_bytes"), buf))
 
 
-class _RoIAlignAvg(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, features, rois, pooled_size, spatial_scale):
-        ctx.save_for_backward(rois)
-        ctx.feat_shape = tuple(features.shape)
-        ctx.spatial_scale = spatial_scale
-        return _forward(features, rois, pooled_size, spatial_scale)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        (rois,) = ctx.saved_tensors
-        dfeat = roi_align_avg_bwd(grad.contiguous(), rois, ctx.feat_shape, ctx.spatial_scale)
-        return dfeat, None, None, None
-
-
 def roi_align_avg(features: torch.Tensor, rois: torch.Tensor, pooled_size: int = 7,
                   spatial_scale: float = 1.0 / 16.0) -> torch.Tensor:
     """features `[B, H, W, C]` NHWC f32/bf16, contiguous; rois `[R, 5]` f32
@@ -141,7 +124,9 @@ def roi_align_avg(features: torch.Tensor, rois: torch.Tensor, pooled_size: int =
     the feature dtype (f32 weights and sums inside the kernel). The features'
     gradient comes from `roi_align_avg_bwd`; the rois take none. The kernels
     run on CUDA tensors, the plain versions on CPU tensors."""
-    return _RoIAlignAvg.apply(features, rois, pooled_size, spatial_scale)
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"roi_align_avg: unsupported device {features.device}")
+    return torch.ops.rlod.roi_align_avg(features, rois, int(pooled_size), float(spatial_scale))
 
 
 roi_align_avg.launches = 0

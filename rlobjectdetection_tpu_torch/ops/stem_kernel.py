@@ -1,12 +1,15 @@
 """Fused ResNet stem: conv1 (7×7/2, pad 3, no bias, 3→64) + frozen BN +
 ReLU + ceil-mode 3×3/2 max-pool.
 
-Counterpart of `rlobjectdetection_tpu/ops/stem_pallas.py::fused_stem`. On a
-CUDA tensor `fused_stem` launches the hand-written kernel `csrc/stem.cu`; on
-a CPU tensor it runs `stem_plain`, the same function in plain PyTorch, which
-is also what the kernel is held against on the card. The kernel's operands
-(`pack_stem`) are cached on the weight tensor per dtype and device, and
-packed again only when one of the five source tensors changes.
+Counterpart of `rlobjectdetection_tpu/ops/stem_pallas.py::fused_stem`.
+`fused_stem` calls the op `rlod::stem` (`ops/library.py`) on the kernel's
+operands (`pack_stem`): on a CUDA tensor it launches the hand-written
+kernel `csrc/stem.cu`, on a CPU tensor it runs the same function in plain
+PyTorch (`stem_plain_packed`, `stem_plain` on the unpacked weights), which
+is also what the kernel is held against on the card. The operands are
+cached on the weight tensor per dtype and device, and packed again only
+when one of the five source tensors changes; a caller that holds them
+already (an exported model's pinned packs) passes them as `packed`.
 """
 
 from __future__ import annotations
@@ -39,9 +42,14 @@ def stem_plain(x, weight, scale, bias, mean, var, *, dtype=torch.bfloat16,
     as the kernel does); weight `[64, 3, 7, 7]` (OIHW). The conv, BN and ReLU
     run in f32 on `dtype`-rounded inputs; the result is `[B, PH, PW, 64]` in
     `dtype`."""
-    xc = x.to(dtype).float().permute(0, 3, 1, 2)
-    y = F.conv2d(xc, weight.to(dtype).float(), stride=2, padding=3)
     mul, add = bn_mul_add(scale, bias, mean, var, eps)
+    return _stem_folded(x, weight.to(dtype), mul, add, dtype)
+
+
+def _stem_folded(x, w, mul, add, dtype) -> torch.Tensor:
+    """conv (OIHW weight `w` in `dtype`) → x·mul + add → ReLU → ceil max-pool."""
+    xc = x.to(dtype).float().permute(0, 3, 1, 2)
+    y = F.conv2d(xc, w.float().contiguous(), stride=2, padding=3)
     y = torch.relu(y * mul[:, None, None] + add[:, None, None])
     y = F.max_pool2d(y, 3, 2, 0, ceil_mode=True)
     return y.permute(0, 2, 3, 1).to(dtype).contiguous()
@@ -61,6 +69,17 @@ def pack_stem(weight, scale, bias, mean, var, dtype: torch.dtype, eps: float = 1
         wk = w.permute(2, 3, 1, 0).contiguous()
     mul, add = bn_mul_add(scale, bias, mean, var, eps)
     return wk, mul.contiguous(), add.contiguous()
+
+
+def stem_plain_packed(x, packed, dtype) -> torch.Tensor:
+    """`stem_plain` on `pack_stem`'s operands (w, mul, add): the same
+    weights, unpacked, and the same arithmetic."""
+    wk, mul, add = packed
+    if wk.dtype == torch.bfloat16:
+        w = wk.reshape(64, 7, STEM_ROW_TAPS)[:, :, :21].reshape(64, 7, 7, 3).permute(0, 3, 1, 2)
+    else:
+        w = wk.permute(3, 2, 0, 1)
+    return _stem_folded(x, w, mul, add, dtype)
 
 
 def packed_stem(weight, scale, bias, mean, var, dtype, device, eps: float = 1e-5):
@@ -112,27 +131,26 @@ def stem_info(dtype: torch.dtype) -> dict:
 
 
 def fused_stem(x, weight, scale, bias, mean, var, *, dtype=torch.bfloat16,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, packed=None) -> torch.Tensor:
     """conv1 + frozen BN + ReLU + ceil-mode max-pool in one kernel.
 
     x `[B, H, W, 3]` f32 or bf16, contiguous; weight `[64, 3, 7, 7]`;
     scale/bias/mean/var `[64]`. Returns `[B, PH, PW, 64]` (NHWC) in `dtype`,
     the compute dtype: inputs and weights are rounded to it, sums are f32.
     Forward only: raises where autograd would need its gradient
-    (`guards.forward_only`)."""
+    (`guards.forward_only`). `packed`: `packed_stem`'s operands, where the
+    caller holds them."""
     forward_only("fused_stem", (x, weight, scale, bias, mean, var))
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_stem: unsupported device {x.device}")
+    if tuple(weight.shape) != (64, 3, 7, 7):
+        raise ValueError(f"fused_stem: weight must be [64, 3, 7, 7], got {tuple(weight.shape)}")
+    if dtype not in _DTYPES:
+        raise ValueError(f"fused_stem: unsupported dtype {dtype}")
     with torch.no_grad():
-        if x.device.type == "cpu":
-            return stem_plain(x, weight, scale, bias, mean, var, dtype=dtype, eps=eps)
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_stem: unsupported device {x.device}")
-        if tuple(weight.shape) != (64, 3, 7, 7):
-            raise ValueError(f"fused_stem: weight must be [64, 3, 7, 7], got "
-                             f"{tuple(weight.shape)}")
-        if dtype not in _DTYPES:
-            raise ValueError(f"fused_stem: unsupported dtype {dtype}")
-        return launch_stem(x, packed_stem(weight, scale, bias, mean, var, dtype, x.device, eps),
-                           dtype)
+        if packed is None:
+            packed = packed_stem(weight, scale, bias, mean, var, dtype, x.device, eps)
+        return torch.ops.rlod.stem(x, *packed, dtype)
 
 
 fused_stem.launches = 0

@@ -30,6 +30,7 @@ from .res_stage_kernel import swizzle128
 
 _DTYPES = (torch.float32, torch.bfloat16)
 CONV11_TAPS = 27   # conv1_1's K: taps (ky, kx, ci); the bf16 image pads it to 64 with zeros
+VGG_KEYS = ("w", "w1", "w2", "b1", "b2")   # the op's operands (`rlod::vgg_block1`), in order
 
 
 def vgg_block1_plain(x, w1, b1, w2, b2, *, dtype=torch.bfloat16) -> torch.Tensor:
@@ -62,6 +63,21 @@ def pack_vgg_block1(w1, b1, w2, b2, dtype: torch.dtype) -> dict:
     return dict(w1=w1.float().permute(2, 3, 1, 0).reshape(CONV11_TAPS, 64).contiguous(),
                 w2=w2.float().permute(2, 3, 1, 0).reshape(9, 64, 64).contiguous(),
                 b1=b1k, b2=b2k)
+
+
+def vgg_block1_plain_packed(x, packed: dict, dtype) -> torch.Tensor:
+    """`vgg_block1_plain` on `pack_vgg_block1`'s operands: the bf16 image
+    unswizzled (`swizzle128` is its own inverse) or the f32 rows, the same
+    weights and the same arithmetic."""
+    if packed.get("w") is not None:
+        tiles = swizzle128(packed["w"].reshape(10, 64, 64))
+        w2 = tiles[:9].reshape(3, 3, 64, 64).permute(2, 3, 0, 1)
+        w1 = tiles[9][:, :CONV11_TAPS].reshape(64, 3, 3, 3).permute(0, 3, 1, 2)
+    else:
+        w1 = packed["w1"].reshape(3, 3, 3, 64).permute(3, 2, 0, 1)
+        w2 = packed["w2"].reshape(3, 3, 64, 64).permute(3, 2, 0, 1)
+    return vgg_block1_plain(x, w1.contiguous(), packed["b1"], w2.contiguous(), packed["b2"],
+                            dtype=dtype)
 
 
 def packed_vgg_block1(w1, b1, w2, b2, dtype: torch.dtype, device) -> dict:
@@ -122,13 +138,16 @@ def vgg_block1_info(dtype: torch.dtype) -> dict:
     return dict(zip(("registers", "smem_bytes", "ctas_per_sm", "spill_bytes"), buf))
 
 
-def fused_vgg_block1(x, w1, b1, w2, b2, *, dtype=torch.bfloat16) -> torch.Tensor:
+def fused_vgg_block1(x, w1, b1, w2, b2, *, dtype=torch.bfloat16, packed=None) -> torch.Tensor:
     """conv1_1 + ReLU + conv1_2 + ReLU + 2×2 max-pool in one kernel.
 
     x `[B, H, W, 3]` f32 or bf16, contiguous, H and W even; w1
     `[64, 3, 3, 3]`, w2 `[64, 64, 3, 3]` (OIHW); b1, b2 `[64]`. Returns
     `[B, H/2, W/2, 64]` (NHWC) in `dtype`, the compute dtype. Forward only:
-    raises where autograd would need its gradient (`guards.forward_only`)."""
+    raises where autograd would need its gradient (`guards.forward_only`).
+    It runs as the op `rlod::vgg_block1` (`ops/library.py`): the kernel on
+    a CUDA tensor, the plain version on a CPU tensor. `packed`:
+    `packed_vgg_block1`'s operands, where the caller holds them."""
     forward_only("fused_vgg_block1", (x, w1, b1, w2, b2))
     _check_image(x)
     if tuple(w1.shape) != (64, 3, 3, 3) or tuple(w2.shape) != (64, 64, 3, 3):
@@ -136,12 +155,12 @@ def fused_vgg_block1(x, w1, b1, w2, b2, *, dtype=torch.bfloat16) -> torch.Tensor
                          f"[64, 64, 3, 3], got {tuple(w1.shape)} {tuple(w2.shape)}")
     if dtype not in _DTYPES:
         raise ValueError(f"fused_vgg_block1: unsupported dtype {dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_vgg_block1: unsupported device {x.device}")
     with torch.no_grad():
-        if x.device.type == "cpu":
-            return vgg_block1_plain(x, w1, b1, w2, b2, dtype=dtype)
-        if x.device.type != "cuda":
-            raise ValueError(f"fused_vgg_block1: unsupported device {x.device}")
-        return launch_vgg_block1(x, packed_vgg_block1(w1, b1, w2, b2, dtype, x.device), dtype)
+        if packed is None:
+            packed = packed_vgg_block1(w1, b1, w2, b2, dtype, x.device)
+        return torch.ops.rlod.vgg_block1(x, [packed.get(k) for k in VGG_KEYS], dtype)
 
 
 fused_vgg_block1.launches = 0

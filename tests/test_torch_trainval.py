@@ -401,9 +401,11 @@ def test_step_draws_are_keyed_on_seed_and_step():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dist_coordinator", "localhost:1"], "item 14"),
-    (["--dist_nprocs", "2"], "item 14"),
-    (["--dist_rank", "0"], "item 14"),
+    (["--dist_nprocs", "2"], "needs all of --dist_coordinator, --dist_nprocs and --dist_rank"),
+    (["--dist_coordinator", "localhost:1", "--dist_nprocs", "2", "--dist_rank", "0", "--bs", "3"],
+     "--bs 3 does not divide by the 2 processes"),
+    (["--dist_coordinator", "localhost:1", "--dist_nprocs", "2", "--dist_rank", "2"],
+     "rank 2 is outside a world of 2 processes"),
     (["--aot_cache", "x"], "no counterpart"),
     (["--o", "adam"], "trains SGD"),
 ])

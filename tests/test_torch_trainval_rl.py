@@ -371,7 +371,9 @@ def test_cli_trains_then_evaluates_on_the_cpu(data, tmp_path):
 
 def test_cli_refuses_aot_cache_and_has_the_jax_flags(monkeypatch, capsys):
     """`--aot_cache` exits with code 2 and names JAX's executable cache; the
-    flag set and every default are the JAX CLI's, plus `--device` (cuda)."""
+    flag set and every default are the JAX CLI's, plus `--device` (cuda)
+    and the data-parallel flags (one process a GPU, where the JAX CLI
+    shards over a process's devices), which default to a single process."""
     with pytest.raises(SystemExit) as e:
         trainval_rl.parse_args(["--epochs", "1", "--aot_cache", "/tmp/x"])
     assert e.value.code == 2 and "executable cache" in capsys.readouterr().err
@@ -383,6 +385,8 @@ def test_cli_refuses_aot_cache_and_has_the_jax_flags(monkeypatch, capsys):
         want = vars(jax_cli.parse_args())
         got = vars(trainval_rl.parse_args(argv))
         assert got.pop("device") == "cuda"
+        dist = ("dist_coordinator", "dist_nprocs", "dist_rank", "dist_backend", "dist_plan")
+        assert [got.pop(k) for k in dist] == [None] * len(dist)
         assert got == want
 
 
