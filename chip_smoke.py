@@ -1410,7 +1410,7 @@ def rl_cli_path(det_state: dict) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.models.rl import Action
     from rlobjectdetection_tpu_torch.ops import (layer1_kernel, res_stage_kernel,
                                                  roi_align_kernel, stem_kernel)
-    from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+    from rlobjectdetection_tpu_torch.utils import tracing
 
     dev = torch.device("cuda")
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1460,13 +1460,13 @@ def rl_cli_path(det_state: dict) -> tuple[dict, dict]:
         torch.cuda.reset_peak_memory_stats()
         for f in counters.values():
             f.launches = 0
-        packs0 = cached_pack.packs
+        packs0 = tracing.totals().get("pack.misses", 0)
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             result = trainval_rl.main(["--epochs", "2", "--pretrained", pretrained] + common,
                                       num_workers=RL_CLI_WORKERS)
         peak = torch.cuda.max_memory_allocated()
-        packs = cached_pack.packs - packs0
+        packs = tracing.totals().get("pack.misses", 0) - packs0
         steps = result["step"]
         train_launches = {k: f.launches for k, f in counters.items()}
         losses = [l[2:] for l in result["logged"]]

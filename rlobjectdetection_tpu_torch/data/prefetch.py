@@ -23,6 +23,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 
 class AsyncLoader:
     """Wraps a loader with `batch_plan()` / `assemble_job(job)`: assembles up
@@ -96,18 +98,20 @@ def device_prefetch(batches, put_fn, device: str | torch.device, depth: int = 2)
     `put_fn`, and every CUDA tensor in it is marked as used by that stream
     (`record_stream`), so the caching allocator does not hand its memory to
     the side stream while the consumer still reads it. On any other device
-    `put_fn` runs as it is."""
+    `put_fn` runs as it is. Each `put_fn`, with its pinning and the enqueue
+    of its copies, runs in the span `data.h2d`."""
     dev = torch.device(device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def put(b):
-        if side is None:
-            return put_fn(b), None
-        with torch.cuda.stream(side):
-            out = put_fn(b)
-            done = torch.cuda.Event()
-            done.record(side)
-        return out, done
+        with tracing.span("data.h2d"):
+            if side is None:
+                return put_fn(b), None
+            with torch.cuda.stream(side):
+                out = put_fn(b)
+                done = torch.cuda.Event()
+                done.record(side)
+            return out, done
 
     queue = collections.deque()
     it = iter(batches)

@@ -2,7 +2,10 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .utils import tracing
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -23,3 +26,12 @@ def compute_dtype(name: str) -> torch.dtype:
     if name == "float32":
         return torch.float32
     raise ValueError(f"unsupported DTYPE {name!r}")
+
+
+def pageable_to(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device`, copied from pageable memory;
+    off the CPU the copy's bytes count to `h2d.pageable_bytes`."""
+    t = torch.from_numpy(arr)
+    if device.type != "cpu":
+        tracing.count("h2d.pageable_bytes", t.nbytes)
+    return t.to(device)

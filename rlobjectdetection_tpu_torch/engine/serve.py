@@ -22,8 +22,9 @@ from ..config import (DATASET_OVERRIDES, LS_OVERRIDES, Config, cfg_from_file, cf
                       cfg_update)
 from ..data.blob import PIXEL_MEANS_BGR, pad_shape, prep_im_for_blob, read_image_bgr
 from ..data.minibatch import im_list_to_blob
-from ..device import resolve_device
+from ..device import pageable_to, resolve_device
 from ..models import FasterRCNN
+from ..utils import tracing
 from .checkpoint import load_net_npz
 from .detect import postprocess_detections
 
@@ -61,16 +62,24 @@ class Detector:
 
     @torch.inference_mode()
     def detect(self, im_bgr: np.ndarray):
-        blob, im_info = self.blob(im_bgr)
-        data = torch.from_numpy(blob).to(self.device)
-        info = torch.from_numpy(im_info).to(self.device)
-        out = self.model(data, info)
-        dets = postprocess_detections(
-            out["rois"][0], out["cls_prob"][0], out["bbox_pred"][0], info[0],
-            out["roi_valid"][0], num_classes=self.model.num_classes,
-            class_agnostic=self.model.class_agnostic,
-            max_per_image=self.cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=self.cfg.TEST.NMS)
-        return tuple(t.cpu().numpy() for t in dets)
+        """Spans `serve.request` around the call, and within it
+        `serve.prep`, `serve.h2d`, the model's, `serve.postprocess` and
+        `serve.d2h` (where the host waits for the card)."""
+        with tracing.span("serve.request", shape=tuple(im_bgr.shape)):
+            with tracing.span("serve.prep"):
+                blob, im_info = self.blob(im_bgr)
+            with tracing.span("serve.h2d"):
+                data = pageable_to(blob, self.device)
+                info = pageable_to(im_info, self.device)
+            out = self.model(data, info)
+            with tracing.span("serve.postprocess"):
+                dets = postprocess_detections(
+                    out["rois"][0], out["cls_prob"][0], out["bbox_pred"][0], info[0],
+                    out["roi_valid"][0], num_classes=self.model.num_classes,
+                    class_agnostic=self.model.class_agnostic,
+                    max_per_image=self.cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=self.cfg.TEST.NMS)
+            with tracing.span("serve.d2h"):
+                return tuple(t.cpu().numpy() for t in dets)
 
 
 def build_config(dataset: str | None = None, set_cfgs=None, *, large_scale: bool = False,

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from ..utils.guards import skip_nonfinite_step
 
 
@@ -40,31 +41,42 @@ def make_train_step(model, opt, sched, skip_nonfinite: bool = False, global_batc
     its RPN normalisation (`FasterRCNN.forward`), DDP's mean of the
     gradients, the clip on their global norm (the optimizer steps after
     the all-reduce), one skip decision for every rank, and the metrics as
-    the global batch's means (fg_cnt, bg_cnt: sums)."""
+    the global batch's means (fg_cnt, bg_cnt: sums).
+
+    Each call runs in the span `train.step` (`utils/tracing.py`), its
+    backward in `train.backward` and its optimizer and scheduler steps in
+    `train.optimizer`."""
 
     def train_step(batch: dict, generator, dropout=None) -> dict:
-        opt.zero_grad(set_to_none=True)
-        dp = {} if global_batch is None else {"global_batch": global_batch}
-        out = model(batch["data"], batch["im_info"], batch["gt_boxes"], batch.get("num_boxes"),
-                    train=True, generator=generator, dropout=dropout, **dp)
-        loss = (out["rpn_loss_cls"] + out["rpn_loss_box"]
-                + out["rcnn_loss_cls"] + out["rcnn_loss_bbox"])
-        loss.backward()
-        metrics = {"loss": loss.detach(), "rpn_cls": out["rpn_loss_cls"].detach(),
-                   "rpn_box": out["rpn_loss_box"].detach(),
-                   "rcnn_cls": out["rcnn_loss_cls"].detach(),
-                   "rcnn_box": out["rcnn_loss_bbox"].detach(),
-                   "fg_cnt": (out["rois_label"] > 0).sum(),
-                   "bg_cnt": (out["rois_label"] == 0).sum()}
-        if global_batch is not None:
-            metrics = global_batch.metrics(metrics)
-        if skip_nonfinite:
-            agree = None if global_batch is None else global_batch.all_true
-            metrics["skipped"] = torch.tensor(float(skip_nonfinite_step(opt, sched, agree)))
-        else:
-            opt.step()
-            sched.step()
-        return metrics
+        # the span's step: the scheduler's count of the steps taken, where
+        # it keeps one (a resumed run's scheduler goes on from its count)
+        with tracing.span("train.step", global_step=getattr(sched, "last_epoch", None)):
+            opt.zero_grad(set_to_none=True)
+            dp = {} if global_batch is None else {"global_batch": global_batch}
+            out = model(batch["data"], batch["im_info"], batch["gt_boxes"],
+                        batch.get("num_boxes"), train=True, generator=generator,
+                        dropout=dropout, **dp)
+            loss = (out["rpn_loss_cls"] + out["rpn_loss_box"]
+                    + out["rcnn_loss_cls"] + out["rcnn_loss_bbox"])
+            with tracing.span("train.backward"):
+                loss.backward()
+            metrics = {"loss": loss.detach(), "rpn_cls": out["rpn_loss_cls"].detach(),
+                       "rpn_box": out["rpn_loss_box"].detach(),
+                       "rcnn_cls": out["rcnn_loss_cls"].detach(),
+                       "rcnn_box": out["rcnn_loss_bbox"].detach(),
+                       "fg_cnt": (out["rois_label"] > 0).sum(),
+                       "bg_cnt": (out["rois_label"] == 0).sum()}
+            if global_batch is not None:
+                metrics = global_batch.metrics(metrics)
+            with tracing.span("train.optimizer"):
+                if skip_nonfinite:
+                    agree = None if global_batch is None else global_batch.all_true
+                    metrics["skipped"] = torch.tensor(
+                        float(skip_nonfinite_step(opt, sched, agree)))
+                else:
+                    opt.step()
+                    sched.step()
+            return metrics
 
     return train_step
 

@@ -59,6 +59,7 @@ from ..models import FasterRCNN
 from ..parallel.distributed import (GlobalBatch, add_dist_args, check_dist_args, first_on_host,
                                     host_local_batch_slice, initialize)
 from ..parallel.mesh import replicate
+from ..utils import tracing
 from ..utils.logging import (AveMeter, MetricsWriter, init_log, start_profiler_trace,
                              stop_profiler_trace)
 from .checkpoint import checkpoint_path, load_checkpoint, load_params, save_checkpoint
@@ -139,7 +140,8 @@ def step_draws(seed: int, global_step: int, device) -> tuple[torch.Generator, to
 
 class TimedJobs:
     """A loader's `batch_plan()` jobs whose result is (batch, host ms of its
-    assembly)."""
+    assembly), each assembled in the span `data.assemble` on the thread
+    that runs it."""
 
     def __init__(self, loader):
         self.loader = loader
@@ -148,9 +150,12 @@ class TimedJobs:
         return self.loader.batch_plan()
 
     def assemble_job(self, job):
-        t0 = time.perf_counter()
-        batch = self.loader.assemble_job(job)
-        return batch, (time.perf_counter() - t0) * 1e3
+        with tracing.span("data.assemble") as sp:
+            t0 = time.perf_counter()
+            batch = self.loader.assemble_job(job)
+            ms = (time.perf_counter() - t0) * 1e3
+            sp.set(images=len(batch["data"]))
+        return batch, ms
 
 
 def train_epochs(model, loader, step_fn, draws_for_step, *, start_epoch: int = 1,
@@ -192,7 +197,13 @@ def train_epochs(model, loader, step_fn, draws_for_step, *, start_epoch: int = 1
         images = first_images = 0
         asm_ms, gaps, wait_s = [], [], 0.0
         last_end, t_first = None, None
-        for it, (batch, ms) in enumerate(device_prefetch(source, put, device=dev)):
+        batches = enumerate(device_prefetch(source, put, device=dev))
+        while True:
+            with tracing.span("data.next"):
+                nxt = next(batches, None)
+            if nxt is None:
+                break
+            it, (batch, ms) = nxt
             n = batch["data"].shape[0]
             if cuda:
                 start = torch.cuda.Event(enable_timing=True)

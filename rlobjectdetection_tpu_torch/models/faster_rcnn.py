@@ -30,6 +30,7 @@ from ..device import compute_dtype, resolve_device
 from ..ops.roi_align_kernel import roi_align_avg
 from ..ops.roi_crop import roi_crop
 from ..ops.roi_pool import roi_pool
+from ..utils import tracing
 from .backbones.resnet import (Conv2d, Dense, ResNetBase, ResNetHead, conv, nchw_to_nhwc,
                                nhwc_to_nchw)
 from .backbones.vgg import VGGBase, VGGHead
@@ -113,18 +114,20 @@ class FasterRCNN(nn.Module):
         """RPN + proposal layer at `phase`'s top-N and NMS threshold
         (cfg.TRAIN or cfg.TEST, the default): (rois `[B, R, 5]`, roi_scores,
         roi_valid)."""
-        rpn_cls, rpn_delta = self.rpn(base_feat)
+        with tracing.span("model.rpn"):
+            rpn_cls, rpn_delta = self.rpn(base_feat)
         return self._propose(rpn_cls, rpn_delta, im_info, phase or self.cfg.TEST)
 
     def _propose(self, rpn_cls, rpn_delta, im_info, phase):
         """The proposal layer on detached RPN outputs."""
         c = self.cfg
-        return proposal_layer(
-            rpn_fg_probs(rpn_cls, self.num_anchors).detach(), rpn_delta.detach(), im_info,
-            feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
-            anchor_ratios=c.ANCHOR_RATIOS, pre_nms_top_n=phase.RPN_PRE_NMS_TOP_N,
-            post_nms_top_n=phase.RPN_POST_NMS_TOP_N, nms_thresh=phase.RPN_NMS_THRESH,
-            nms_tile=c.NMS_TILE)
+        with tracing.span("model.proposals"):
+            return proposal_layer(
+                rpn_fg_probs(rpn_cls, self.num_anchors).detach(), rpn_delta.detach(), im_info,
+                feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
+                anchor_ratios=c.ANCHOR_RATIOS, pre_nms_top_n=phase.RPN_PRE_NMS_TOP_N,
+                post_nms_top_n=phase.RPN_POST_NMS_TOP_N, nms_thresh=phase.RPN_NMS_THRESH,
+                nms_tile=c.NMS_TILE)
 
     def extract_roi_features(self, base_feat: torch.Tensor,
                              rois_flat: torch.Tensor) -> torch.Tensor:
@@ -148,12 +151,13 @@ class FasterRCNN(nn.Module):
         """RoI features + head + classifiers for rois `[B, R, 5]`: (cls_score
         `[B·R, C]` f32, bbox_pred `[B·R, 4C]` f32). `dropout` (a uniform
         source) puts the VGG head in train; the ResNet head has none."""
-        pooled = self.extract_roi_features(base_feat, rois.reshape(-1, 5))
-        if isinstance(self.head, VGGHead):
-            feat = self.head(pooled, train=dropout is not None, dropout=dropout)
-        else:
-            feat = self.head(pooled)                       # [B*R, 2048 | 4096]
-        return self.RCNN_cls_score(feat).float(), self.RCNN_bbox_pred(feat).float()
+        with tracing.span("model.head"):
+            pooled = self.extract_roi_features(base_feat, rois.reshape(-1, 5))
+            if isinstance(self.head, VGGHead):
+                feat = self.head(pooled, train=dropout is not None, dropout=dropout)
+            else:
+                feat = self.head(pooled)                       # [B*R, 2048 | 4096]
+            return self.RCNN_cls_score(feat).float(), self.RCNN_bbox_pred(feat).float()
 
     def detect_head(self, base_feat: torch.Tensor, rois: torch.Tensor):
         """RoI features + head + classifiers for rois `[B, R, 5]`: (cls_prob
@@ -189,8 +193,9 @@ class FasterRCNN(nn.Module):
             # (STAGE_FUSED) engage whatever FIXED_BLOCKS says, as in the JAX
             # model
             with torch.no_grad():
-                base_feat = (self.base(im_data, fwd_only=True)
-                             if isinstance(self.base, ResNetBase) else self.base(im_data))
+                with tracing.span("model.trunk"):
+                    base_feat = (self.base(im_data, fwd_only=True)
+                                 if isinstance(self.base, ResNetBase) else self.base(im_data))
                 rois, _, roi_valid = self.proposals(base_feat, im_info)
                 cls_prob, bbox_pred = self.detect_head(base_feat, rois)
             return dict(rois=rois, roi_valid=roi_valid, cls_prob=cls_prob, bbox_pred=bbox_pred)
@@ -210,50 +215,57 @@ class FasterRCNN(nn.Module):
     def _train_forward(self, im_data, im_info, gt_boxes, uniform, dropout, global_batch=None):
         c, t = self.cfg, self.cfg.TRAIN
         b, a = im_data.shape[0], self.num_anchors
-        base_feat = self.base(im_data)
-        rpn_cls, rpn_delta = self.rpn(base_feat)
+        with tracing.span("model.trunk"):
+            base_feat = self.base(im_data)
+        with tracing.span("model.rpn"):
+            rpn_cls, rpn_delta = self.rpn(base_feat)
         rois, _, _ = self._propose(rpn_cls, rpn_delta, im_info, t)
 
         # the anchors' bounds are the batch's first image's (a JAX quirk kept)
         bounds = im_info if global_batch is None else global_batch.first_row(im_info)
-        at = anchor_target(
-            uniform, tuple(base_feat.shape[1:3]), gt_boxes, bounds,
-            feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
-            anchor_ratios=c.ANCHOR_RATIOS, rpn_batch_size=t.RPN_BATCHSIZE,
-            fg_fraction=t.RPN_FG_FRACTION, positive_overlap=t.RPN_POSITIVE_OVERLAP,
-            negative_overlap=t.RPN_NEGATIVE_OVERLAP, clobber_positives=t.RPN_CLOBBER_POSITIVES)
-        # the RPN's 2-way logits per anchor, in the targets' (h, w, a) order
-        logits2 = torch.stack([rpn_cls[..., :a].reshape(b, -1),
-                               rpn_cls[..., a:].reshape(b, -1)], dim=-1)
-        sampled = at.labels >= 0
-        rpn_loss_cls = softmax_cross_entropy(
-            logits2, at.labels.clamp_min(0), sampled,
-            denom=None if global_batch is None else global_batch.count_share(sampled.sum()))
-        rpn_loss_box = smooth_l1_loss(rpn_delta.float().reshape(b, -1, 4), at.bbox_targets,
-                                      at.bbox_inside_weights, at.bbox_outside_weights,
-                                      sigma=3.0, reduce_dims=(1, 2))
+        with tracing.span("model.anchor_target"):
+            at = anchor_target(
+                uniform, tuple(base_feat.shape[1:3]), gt_boxes, bounds,
+                feat_stride=c.FEAT_STRIDE[0], anchor_scales=c.ANCHOR_SCALES,
+                anchor_ratios=c.ANCHOR_RATIOS, rpn_batch_size=t.RPN_BATCHSIZE,
+                fg_fraction=t.RPN_FG_FRACTION, positive_overlap=t.RPN_POSITIVE_OVERLAP,
+                negative_overlap=t.RPN_NEGATIVE_OVERLAP,
+                clobber_positives=t.RPN_CLOBBER_POSITIVES)
+        with tracing.span("model.loss"):
+            # the RPN's 2-way logits per anchor, in the targets' (h, w, a) order
+            logits2 = torch.stack([rpn_cls[..., :a].reshape(b, -1),
+                                   rpn_cls[..., a:].reshape(b, -1)], dim=-1)
+            sampled = at.labels >= 0
+            rpn_loss_cls = softmax_cross_entropy(
+                logits2, at.labels.clamp_min(0), sampled,
+                denom=None if global_batch is None else global_batch.count_share(sampled.sum()))
+            rpn_loss_box = smooth_l1_loss(rpn_delta.float().reshape(b, -1, 4), at.bbox_targets,
+                                          at.bbox_inside_weights, at.bbox_outside_weights,
+                                          sigma=3.0, reduce_dims=(1, 2))
 
-        pt = proposal_target(
-            uniform, rois, gt_boxes, rois_per_image=t.BATCH_SIZE, fg_fraction=t.FG_FRACTION,
-            fg_thresh=t.FG_THRESH, bg_thresh_hi=t.BG_THRESH_HI, bg_thresh_lo=t.BG_THRESH_LO,
-            bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
-            bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
-            bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS,
-            normalize_targets=t.BBOX_NORMALIZE_TARGETS_PRECOMPUTED)
+        with tracing.span("model.proposal_target"):
+            pt = proposal_target(
+                uniform, rois, gt_boxes, rois_per_image=t.BATCH_SIZE, fg_fraction=t.FG_FRACTION,
+                fg_thresh=t.FG_THRESH, bg_thresh_hi=t.BG_THRESH_HI, bg_thresh_lo=t.BG_THRESH_LO,
+                bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
+                bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
+                bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS,
+                normalize_targets=t.BBOX_NORMALIZE_TARGETS_PRECOMPUTED)
         r = pt.rois.shape[1]
         cls_score, bbox_pred = self._scores(base_feat, pt.rois, dropout)
         labels = pt.labels.reshape(-1)
-        if not self.class_agnostic:
-            # each roi's regression group, picked by its label (one-hot, as
-            # the JAX model does)
-            sel = torch.nn.functional.one_hot(labels.long(), self.num_classes).float()
-            bbox_pred = torch.einsum("ncd,nc->nd",
-                                     bbox_pred.reshape(-1, self.num_classes, 4), sel)
-        rcnn_loss_cls = softmax_cross_entropy(cls_score, labels)
-        rcnn_loss_bbox = smooth_l1_loss(bbox_pred, pt.bbox_targets.reshape(-1, 4),
-                                        pt.bbox_inside_weights.reshape(-1, 4),
-                                        pt.bbox_outside_weights.reshape(-1, 4),
-                                        sigma=1.0, reduce_dims=(-1,))
+        with tracing.span("model.loss"):
+            if not self.class_agnostic:
+                # each roi's regression group, picked by its label (one-hot, as
+                # the JAX model does)
+                sel = torch.nn.functional.one_hot(labels.long(), self.num_classes).float()
+                bbox_pred = torch.einsum("ncd,nc->nd",
+                                         bbox_pred.reshape(-1, self.num_classes, 4), sel)
+            rcnn_loss_cls = softmax_cross_entropy(cls_score, labels)
+            rcnn_loss_bbox = smooth_l1_loss(bbox_pred, pt.bbox_targets.reshape(-1, 4),
+                                            pt.bbox_inside_weights.reshape(-1, 4),
+                                            pt.bbox_outside_weights.reshape(-1, 4),
+                                            sigma=1.0, reduce_dims=(-1,))
         return dict(
             rois=pt.rois, roi_valid=torch.ones((b, r), dtype=torch.bool, device=pt.rois.device),
             cls_prob=torch.softmax(cls_score, dim=-1).reshape(b, r, -1),

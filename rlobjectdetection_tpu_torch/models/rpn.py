@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..device import pageable_to
 from ..ops.anchors import shifted_anchors
 from ..ops.boxes import bbox_transform_inv, clip_boxes
 from ..ops.nms import nms_select
@@ -54,9 +55,9 @@ def proposal_layer(fg_probs: torch.Tensor, bbox_deltas: torch.Tensor,
     Returns (rois `[B, post_n, 5]` with the batch index in column 0 and zero
     padding, roi_scores `[B, post_n]`, roi_valid `[B, post_n]`)."""
     b, h, w, a = fg_probs.shape
-    anchors = torch.from_numpy(shifted_anchors(
+    anchors = pageable_to(shifted_anchors(
         h, w, feat_stride, ratios=tuple(anchor_ratios),
-        scales=tuple(anchor_scales))).to(fg_probs.device)          # [H*W*A, 4]
+        scales=tuple(anchor_scales)), fg_probs.device)             # [H*W*A, 4]
     scores = fg_probs.reshape(b, h * w * a)
     deltas = bbox_deltas.float().reshape(b, h * w * a, 4)
     proposals = bbox_transform_inv(anchors[None].expand(b, -1, -1), deltas)

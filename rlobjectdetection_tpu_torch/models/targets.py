@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..device import pageable_to
 from ..ops.anchors import shifted_anchors
 from ..ops.boxes import bbox_overlaps_masked, bbox_transform
 
@@ -81,8 +82,8 @@ def anchor_target(uniform: Uniform, feat_hw, gt_boxes: torch.Tensor, im_info: to
     y2, cls), zero-padded; im_info `[B, 3]`."""
     h, w = feat_hw
     dev = gt_boxes.device
-    anchors = torch.from_numpy(shifted_anchors(h, w, feat_stride, ratios=tuple(anchor_ratios),
-                                               scales=tuple(anchor_scales))).to(dev)
+    anchors = pageable_to(shifted_anchors(h, w, feat_stride, ratios=tuple(anchor_ratios),
+                                          scales=tuple(anchor_scales)), dev)
     n, b = anchors.shape[0], gt_boxes.shape[0]
     im_h, im_w = im_info[0, 0], im_info[0, 1]
     inside = ((anchors[:, 0] >= -allowed_border) & (anchors[:, 1] >= -allowed_border)

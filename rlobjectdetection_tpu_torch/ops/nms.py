@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from .boxes import _inter_union, bbox_overlaps
 
 NEG_INF = -1e10
@@ -48,33 +49,40 @@ def nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: flo
 def _nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
                      tile_size: int, max_keep: int | None) -> torch.Tensor:
     """`nms_sorted_mask`'s body: Jacobi steps within a tile, tiles in score
-    order, each step's convergence and each tile's stop read on the host."""
-    n = boxes.shape[-2]
-    small = n <= 2 * tile_size
-    tile = max(n, 1) if small else tile_size
-    keep = torch.zeros(valid.shape, dtype=torch.bool, device=boxes.device)
-    for start in range(0, n, tile):
-        end = min(start + tile, n)
-        tb = boxes[..., start:end, :]
-        tv = valid[..., start:end]
-        t = end - start
-        lower = torch.ones(t, t, dtype=torch.bool, device=boxes.device).tril(-1)
-        adj = _suppresses(tb, tb, iou_threshold, small) & lower & tv[..., None, :]
-        if start > 0:
-            cross = _suppresses(tb, boxes[..., :start, :], iou_threshold, small)
-            sup_prev = (cross & keep[..., None, :start]).any(-1)
-        else:
-            sup_prev = torch.zeros_like(tv)
-        sup = sup_prev | adj.any(-1)
-        while True:
-            new = sup_prev | (adj & ~sup[..., None, :]).any(-1)
-            if torch.equal(new, sup):
-                break
-            sup = new
-        keep[..., start:end] = tv & ~sup
-        if (max_keep is not None and end < n
-                and bool((keep.sum(-1) >= max_keep).all())):
-            break
+    order, each step's convergence and each tile's stop read on the host.
+    Runs in the span `model.nms` and counts those blocking reads to
+    `nms.host_syncs`."""
+    with tracing.span("model.nms"):
+        n = boxes.shape[-2]
+        small = n <= 2 * tile_size
+        tile = max(n, 1) if small else tile_size
+        keep = torch.zeros(valid.shape, dtype=torch.bool, device=boxes.device)
+        syncs = 0
+        for start in range(0, n, tile):
+            end = min(start + tile, n)
+            tb = boxes[..., start:end, :]
+            tv = valid[..., start:end]
+            t = end - start
+            lower = torch.ones(t, t, dtype=torch.bool, device=boxes.device).tril(-1)
+            adj = _suppresses(tb, tb, iou_threshold, small) & lower & tv[..., None, :]
+            if start > 0:
+                cross = _suppresses(tb, boxes[..., :start, :], iou_threshold, small)
+                sup_prev = (cross & keep[..., None, :start]).any(-1)
+            else:
+                sup_prev = torch.zeros_like(tv)
+            sup = sup_prev | adj.any(-1)
+            while True:
+                new = sup_prev | (adj & ~sup[..., None, :]).any(-1)
+                syncs += 1
+                if torch.equal(new, sup):
+                    break
+                sup = new
+            keep[..., start:end] = tv & ~sup
+            if max_keep is not None and end < n:
+                syncs += 1
+                if bool((keep.sum(-1) >= max_keep).all()):
+                    break
+        tracing.count("nms.host_syncs", syncs)
     return keep
 
 

@@ -15,21 +15,21 @@ from typing import Callable, Iterable
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from ..utils import tracing
+
 
 def cached_pack(holder, attr: str, slot, extra, tensors: Iterable[torch.Tensor],
                 pack: Callable):
     """`pack()`, cached in `holder.__dict__[attr][slot]` as (key, value);
-    the key is `extra` and each tensor's (data_ptr, version)."""
+    the key is `extra` and each tensor's (data_ptr, version). Each miss
+    counts to `pack.misses` (`utils/tracing.py`)."""
     key = (extra, tuple((t.data_ptr(), t._version) for t in tensors))
     cache = holder.__dict__.setdefault(attr, {})
     hit = cache.get(slot)
     if hit is None or hit[0] != key:
         cache[slot] = hit = (key, pack())
-        cached_pack.packs += 1
+        tracing.count("pack.misses")
     return hit[1]
-
-
-cached_pack.packs = 0   # cache misses, for the tests
 
 
 class PinnedPacks(torch.nn.Module):

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from collections import deque
 
 import numpy as np
@@ -84,8 +83,8 @@ def ensure_dir(path: str):
 
 
 class MetricsWriter:
-    """Scalar, histogram and image summaries through tensorboardX; a no-op
-    where tensorboardX is not installed."""
+    """Scalar summaries through tensorboardX; a no-op where tensorboardX is
+    not installed."""
 
     def __init__(self, log_dir: str):
         self._writer = None
@@ -100,40 +99,16 @@ class MetricsWriter:
         if self._writer:
             self._writer.add_scalar(tag, float(value), step)
 
-    def histo_summary(self, tag: str, values, step: int):
-        if self._writer:
-            self._writer.add_histogram(tag, values, step)
-
-    def image_summary(self, tag: str, images, step: int):
-        """`[N, H, W, C]` or `[N, H, W]` images."""
-        if self._writer:
-            for i, img in enumerate(images):
-                img = np.asarray(img)
-                self._writer.add_image(f"{tag}/{i}", img, step,
-                                       dataformats="HWC" if img.ndim == 3 else "HW")
-
     def close(self):
         if self._writer:
             self._writer.close()
 
 
-class StepTimer:
-    """Host wall clock: `tic()` restarts, `toc()` gives seconds since."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-
-    def tic(self):
-        self.t0 = time.perf_counter()
-
-    def toc(self):
-        return time.perf_counter() - self.t0
-
-
 def start_profiler_trace(log_dir: str):
     """Start a `torch.profiler` trace of CPU and CUDA activity (CPU only
     where there is no card); returns the handle `stop_profiler_trace`
-    takes."""
+    takes. The port's spans (`utils/tracing.py`) show in it as
+    `user_annotation` events beside the kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

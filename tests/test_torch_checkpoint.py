@@ -30,10 +30,15 @@ from rlobjectdetection_tpu_torch.engine import (build_optimizer, make_lr_schedul
 from rlobjectdetection_tpu_torch.engine import checkpoint, convert_torch_weights as conv
 from rlobjectdetection_tpu_torch.engine.trainval_net import step_draws
 from rlobjectdetection_tpu_torch.models import FasterRCNN
-from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
 from rlobjectdetection_tpu_torch.ops.stem_kernel import packed_stem
+from rlobjectdetection_tpu_torch.utils import tracing
 from test_torch_train import _gt_boxes
 import torch_threads  # noqa: F401  (xdist workers share the cores)
+
+
+def pack_misses() -> int:
+    return tracing.totals().get("pack.misses", 0)
+
 
 TINY_CFG = Config(TRAIN=TrainConfig(RPN_PRE_NMS_TOP_N=256, RPN_POST_NMS_TOP_N=64,
                                     BATCH_SIZE=32),
@@ -162,10 +167,10 @@ def test_a_load_after_a_kernel_call_packs_again(tmp_path):
         model.base(x)
         stem_ops = packed_stem(model.base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var,
                                torch.float32, torch.device("cpu"))
-        packs = cached_pack.packs
+        packs = pack_misses()
         checkpoint.load_checkpoint(path, model)
         got = model.base(x)
-        assert cached_pack.packs > packs
+        assert pack_misses() > packs
         assert torch.equal(got, src.base(x))
         again = packed_stem(model.base.conv1.weight, bn.scale, bn.bias, bn.mean, bn.var,
                             torch.float32, torch.device("cpu"))

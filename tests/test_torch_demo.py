@@ -200,5 +200,3 @@ def test_logging_helpers_match_jax():
     log = port_logging.init_log("port_test_log")
     assert port_logging.init_log("port_test_log") is log
     assert len(log.handlers) == 1 and len(log.filters) == 1
-    timer = port_logging.StepTimer()
-    assert timer.toc() >= 0.0

@@ -700,7 +700,7 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     from rlobjectdetection_tpu_torch.engine import build_optimizer
     from rlobjectdetection_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
     from rlobjectdetection_tpu_torch.models import FasterRCNN
-    from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+    from rlobjectdetection_tpu_torch.utils import tracing
 
     cfg = Config(DTYPE="bfloat16", CONV1_FUSED=True, LAYER1_FUSED=True)
     src = FasterRCNN(21, "resnet50", cfg, device=cuda, seed=9)
@@ -715,10 +715,10 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
                          * 30).to(cuda)
     with torch.no_grad():
         model.base(x, fwd_only=True)
-        packs = cached_pack.packs
+        packs = tracing.totals().get("pack.misses", 0)
         meta = load_checkpoint(path, model, opt2, sched2)
         got = model.base(x, fwd_only=True)
-        assert cached_pack.packs >= packs + 2
+        assert tracing.totals().get("pack.misses", 0) >= packs + 2
         assert torch.equal(got, src.base(x, fwd_only=True))
     assert meta["step"] == 5
     want = src.state_dict()

@@ -14,8 +14,13 @@ import torch.nn.functional as F
 
 from rlobjectdetection_tpu_torch.models.backbones.resnet import ResLayer
 from rlobjectdetection_tpu_torch.ops import layer1_kernel, stem_kernel
-from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+from rlobjectdetection_tpu_torch.utils import tracing
 import torch_threads  # noqa: F401  (xdist workers share the cores)
+
+
+def pack_misses() -> int:
+    return tracing.totals().get("pack.misses", 0)
+
 
 # bf16: the GEMM and the plain version round the same f32 results at the
 # same points, with sums in other orders: an output may round to the
@@ -145,16 +150,16 @@ def test_layer1_packs_once_and_again_after_a_weight_change(dtype):
     rng = np.random.RandomState(7)
     layer = _layer1(rng)
     x = torch.from_numpy(np.abs(rng.randn(1, 6, 9, 64)).astype(np.float32)).to(dtype)
-    n0 = cached_pack.packs
+    n0 = pack_misses()
     first = layer1_kernel.fused_layer1(x, layer, dtype=dtype)
     packed = layer._layer1_packed[dtype][1]
     again = layer1_kernel.fused_layer1(x, layer, dtype=dtype)
-    assert cached_pack.packs == n0 + 1 and layer._layer1_packed[dtype][1] is packed
+    assert pack_misses() == n0 + 1 and layer._layer1_packed[dtype][1] is packed
     assert torch.equal(first, again)
     with torch.no_grad():
         layer.block2.conv3.weight.mul_(2.0)
     changed = layer1_kernel.fused_layer1(x, layer, dtype=dtype)
-    assert cached_pack.packs == n0 + 2 and layer._layer1_packed[dtype][1] is not packed
+    assert pack_misses() == n0 + 2 and layer._layer1_packed[dtype][1] is not packed
     assert not torch.equal(changed, first)
     assert torch.equal(changed, layer1_kernel.layer1_plain(
         x, layer1_kernel.pack_layer1(layer, dtype), dtype))
@@ -165,10 +170,10 @@ def test_stem_packs_once_and_again_after_a_weight_change(dtype):
     rng = np.random.RandomState(8)
     _, wt, bn = _stem_args(rng, 1, 8, 8)
     cpu = torch.device("cpu")
-    n0 = cached_pack.packs
+    n0 = pack_misses()
     first = stem_kernel.packed_stem(wt, *bn, dtype, cpu)
     assert stem_kernel.packed_stem(wt, *bn, dtype, cpu) is first
-    assert cached_pack.packs == n0 + 1
+    assert pack_misses() == n0 + 1
     for edit in (lambda: bn[3].mul_(2.0), lambda: wt.add_(1.0)):   # a BN buffer, the weight
         with torch.no_grad():
             edit()
@@ -177,4 +182,4 @@ def test_stem_packs_once_and_again_after_a_weight_change(dtype):
         for got, want in zip(repacked, stem_kernel.pack_stem(wt, *bn, dtype)):
             assert torch.equal(got, want)
         first = repacked
-    assert cached_pack.packs == n0 + 3
+    assert pack_misses() == n0 + 3

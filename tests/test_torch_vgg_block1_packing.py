@@ -17,8 +17,13 @@ import torch
 import torch.nn.functional as F
 
 from rlobjectdetection_tpu_torch.ops import vgg_block1_kernel
-from rlobjectdetection_tpu_torch.ops.pack_cache import cached_pack
+from rlobjectdetection_tpu_torch.utils import tracing
 import torch_threads  # noqa: F401  (xdist workers share the cores)
+
+
+def pack_misses() -> int:
+    return tracing.totals().get("pack.misses", 0)
+
 
 SBO = 1024
 # f32 sums, no intermediate rounding on either side: summation order only.
@@ -143,10 +148,10 @@ def test_packs_once_and_again_after_a_weight_change(dtype):
     _, w1, b1, w2, b2 = _inputs(np.random.RandomState(8), 1, 2, 2)
     src = (w1, b1, w2, b2)
     cpu = torch.device("cpu")
-    n0 = cached_pack.packs
+    n0 = pack_misses()
     first = vgg_block1_kernel.packed_vgg_block1(*src, dtype, cpu)
     assert vgg_block1_kernel.packed_vgg_block1(*src, dtype, cpu) is first
-    assert cached_pack.packs == n0 + 1
+    assert pack_misses() == n0 + 1
     for edit in (lambda: b1.add_(1.0), lambda: w2.mul_(2.0)):   # a bias, conv1_2's weight
         with torch.no_grad():
             edit()
@@ -156,4 +161,4 @@ def test_packs_once_and_again_after_a_weight_change(dtype):
         assert repacked.keys() == want.keys()
         assert all(torch.equal(repacked[k], want[k]) for k in want)
         first = repacked
-    assert cached_pack.packs == n0 + 3
+    assert pack_misses() == n0 + 3
