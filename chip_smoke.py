@@ -3,10 +3,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rlobjectdetection_tpu_torch/csrc` with
-nvcc (sm_90a), all five sources in parallel, and prints the stem's, layer1's, VGG
+nvcc (sm_90a), all six sources in parallel, and prints the stem's, layer1's, VGG
 block 1's and the residual stage's launch resources (registers, shared
 memory a CTA, CTAs an SM, spills; the stage's grid and cluster too) as the
-runtime reports them. Then, for each of the two served
+runtime reports them. Then the NMS kernel (`csrc/nms.cu`, the op
+`rlod::nms_sorted_mask`) at the main path's shapes (`nms_path`): a train
+step's RPN proposals [2, 12000] at 0.7 keeping 2000, a request's [1, 6000]
+at 0.7 keeping 300 and its per-class NMS [80, 300] at 0.3 keeping 100, each
+mask against the op's plain body on the card (the same to the bit without
+max_keep; with it, each lane the same through its max_keep-th survivor and
+False after), the kernel timed as a CUDA graph of its launches, its
+wrapper, the plain body, the bound (the pairs up to each lane's max_keep
+stop, at 33.5 T f32 instructions a second, none an FMA; bytes on 3.35 TB/s)
+and its launches a call; its rows in the kernels line take their launches
+from the flagship's requests and train steps, counted there by shape.
+Then, for each of the two served
 detectors (81 COCO classes, 800×1216, bf16 compute, seeded random weights)
 behind `Detector`:
 
@@ -214,6 +225,9 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
 F32_FLOPS = 67e12
+# f32 instructions a second outside the tensor cores, an FMA counted once
+# (half of F32_FLOPS): the rate of work with no FMA in it, as the NMS's tests
+F32_OPS = F32_FLOPS / 2
 
 NUM_CLASSES = 81
 IMAGE_SIZES = ((480, 729), (600, 900), (427, 640))   # all serve as 800×1216 blobs
@@ -484,6 +498,50 @@ def serve_requests(label: str, detector, images, counters: dict) -> dict:
     return launches
 
 
+# The NMS kernel's calls on the main path by shape, {(lanes, N): [calls,
+# launches]}: the flagship's requests and its train steps (`nms_by_shape`),
+# for the kernels line's NMS rows.
+NMS_MAIN_PATH: dict = {}
+
+
+@contextlib.contextmanager
+def nms_by_shape():
+    """Yields {(lanes, N): [calls, launches]} of the NMS kernel while inside
+    (the op's CUDA body looks `nms_kernel.launch_nms` up at each call, so
+    the tally sees every launch of `rlod::nms_sorted_mask` on the card)."""
+    from rlobjectdetection_tpu_torch.ops import nms_kernel
+
+    launch = nms_kernel.launch_nms
+    tally = {}
+
+    class Counted:
+        """`launch_nms` with its calls tallied; `launches` is the original's
+        (which `launch_nms` itself bumps through its module's name)."""
+
+        @property
+        def launches(self):
+            return launch.launches
+
+        @launches.setter
+        def launches(self, value):
+            launch.launches = value
+
+        def __call__(self, boxes, valid, *args):
+            before = launch.launches
+            keep = launch(boxes, valid, *args)
+            n = boxes.shape[-2]
+            row = tally.setdefault((valid.numel() // n if n else 0, n), [0, 0])
+            row[0] += 1
+            row[1] += launch.launches - before
+            return keep
+
+    nms_kernel.launch_nms = Counted()
+    try:
+        yield tally
+    finally:
+        nms_kernel.launch_nms = launch
+
+
 def request_stages(label: str, detector, image, base_stage: str, head_stage: str):
     """Where one request's time goes: host clock around each stage, each
     ended by a device sync (so the stages do not overlap as they do when
@@ -644,7 +702,8 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     from rlobjectdetection_tpu_torch.engine.serve import Detector
     from rlobjectdetection_tpu_torch.models import FasterRCNN
     from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
-    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
+                                                 stem_kernel)
     from rlobjectdetection_tpu_torch.ops.bn_fold import bn_mul_add
 
     dev = torch.device("cuda")
@@ -658,8 +717,16 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     check(n_params == 48_191_389, f"parameter count {n_params} != 48191389")
     detector = Detector(model, cfg, dev)
     counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
-                "roi_align_avg": roi_align_kernel.roi_align_avg}
-    launches = serve_requests("main", detector, images, counters)
+                "roi_align_avg": roi_align_kernel.roi_align_avg,
+                "nms_sorted_mask": nms_kernel.launch_nms}
+    with nms_by_shape() as nms_calls:
+        launches = serve_requests("main", detector, images, counters)
+    # a request: the RPN's NMS (6000 boxes, two launches), the per-class NMS
+    # (80 classes of 300 rois, one launch)
+    want = {(1, 6000): [len(images), 2 * len(images)], (80, 300): [len(images), len(images)]}
+    check(nms_calls == want, f"main requests: NMS kernel calls by shape {nms_calls}, "
+                             f"expected {want}")
+    NMS_MAIN_PATH.update(nms_calls)
     data, info = request_stages("main", detector, images[0], "base (stem, layer1-3)",
                                 "head (roi_align_avg, layer4, classifiers)")
     # the same request with layer2/layer3 on the residual-stage kernel
@@ -899,7 +966,8 @@ def eval_path(cfg, det_state: dict) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.engine.detect import detections_to_all_boxes
     from rlobjectdetection_tpu_torch.engine.serve import Detector
     from rlobjectdetection_tpu_torch.models import FasterRCNN
-    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
+                                                 stem_kernel)
 
     dev = torch.device("cuda")
     out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output")
@@ -919,7 +987,8 @@ def eval_path(cfg, det_state: dict) -> tuple[dict, dict]:
         model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev)
         model.load_state_dict(det_state)
         counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
-                    "roi_align_avg": roi_align_kernel.roi_align_avg}
+                    "roi_align_avg": roi_align_kernel.roi_align_avg,
+                    "nms_sorted_mask": nms_kernel.launch_nms}
         runs, launches = {}, {k: 0 for k in counters}
         for batch in (1, 2):
             torch.cuda.synchronize()
@@ -1056,7 +1125,7 @@ def vgg16(cfg, images) -> tuple[dict, dict, dict]:
     from rlobjectdetection_tpu_torch.engine.serve import Detector
     from rlobjectdetection_tpu_torch.models import FasterRCNN
     from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
-    from rlobjectdetection_tpu_torch.ops import roi_align_kernel, vgg_block1_kernel
+    from rlobjectdetection_tpu_torch.ops import nms_kernel, roi_align_kernel, vgg_block1_kernel
 
     dev = torch.device("cuda")
     model = FasterRCNN(NUM_CLASSES, "vgg16", cfg, device=dev, seed=3)
@@ -1066,7 +1135,8 @@ def vgg16(cfg, images) -> tuple[dict, dict, dict]:
     check(n_params == 138_316_573, f"parameter count {n_params} != 138316573")
     detector = Detector(model, cfg, dev)
     counters = {"vgg_block1": vgg_block1_kernel.fused_vgg_block1,
-                "roi_align_avg": roi_align_kernel.roi_align_avg}
+                "roi_align_avg": roi_align_kernel.roi_align_avg,
+                "nms_sorted_mask": nms_kernel.launch_nms}
     launches = serve_requests("vgg16", detector, images, counters)
     data, info = request_stages("vgg16", detector, images[0],
                                 "base (block 1 kernel, blocks 2-5)",
@@ -1842,7 +1912,8 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
     from rlobjectdetection_tpu_torch.engine.serve import build_config
     from rlobjectdetection_tpu_torch.models import FasterRCNN
-    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
+                                                 stem_kernel)
 
     dev = torch.device("cuda")
     cfg = build_config("coco", ["DTYPE", "bfloat16"])
@@ -1857,7 +1928,8 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     batch = train_batch(dev)
     counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
                 "roi_align_avg": roi_align_kernel.roi_align_avg,
-                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
+                "nms_sorted_mask": nms_kernel.launch_nms}
     opt, sched, labels = build_optimizer(model, "resnet101", base_lr=0.01)
     step = make_train_step(model, opt, sched)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1874,9 +1946,15 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     step_ms, losses = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
-        metrics = step(batch, gen)
-        loss = float(metrics["loss"])                   # ends in a device sync
+        with nms_by_shape() as nms_calls:
+            metrics = step(batch, gen)
+            loss = float(metrics["loss"])               # ends in a device sync
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        # a step: the RPN's NMS over both images' 12000 boxes, two launches
+        check(nms_calls == {(2, 12000): [1, 2]}, f"train step {i}: NMS kernel calls by shape "
+                                                 f"{nms_calls}, expected one of [2, 12000]")
+        for k, v in nms_calls.items():
+            NMS_MAIN_PATH[k] = [a + b for a, b in zip(NMS_MAIN_PATH.get(k, [0, 0]), v)]
         parts = {k: float(metrics[k]) for k in ("rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")}
         losses.append(parts)
         check(np.isfinite(loss) and all(np.isfinite(v) for v in parts.values()),
@@ -1956,7 +2034,7 @@ def vgg_train_path(vgg_state: dict) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
     from rlobjectdetection_tpu_torch.engine.serve import build_config
     from rlobjectdetection_tpu_torch.models import FasterRCNN
-    from rlobjectdetection_tpu_torch.ops import roi_align_kernel, vgg_block1_kernel
+    from rlobjectdetection_tpu_torch.ops import nms_kernel, roi_align_kernel, vgg_block1_kernel
 
     dev = torch.device("cuda")
     cfg = build_config("coco", ["DTYPE", "bfloat16"])
@@ -1968,7 +2046,8 @@ def vgg_train_path(vgg_state: dict) -> tuple[dict, dict]:
     batch = train_batch(dev)
     counters = {"vgg_block1": vgg_block1_kernel.fused_vgg_block1,
                 "roi_align_avg": roi_align_kernel.roi_align_avg,
-                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
+                "nms_sorted_mask": nms_kernel.launch_nms}
     opt, sched, labels = build_optimizer(model, "vgg16", base_lr=0.01, clip_norm=VGG_CLIP)
     step = make_train_step(model, opt, sched)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -2002,8 +2081,10 @@ def vgg_train_path(vgg_state: dict) -> tuple[dict, dict]:
     print(f"vgg16 train path: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, step ms "
           f"{[round(v, 3) for v in step_ms]}, peak memory {peak} bytes, launches {launches}",
           flush=True)
-    check(all(v == TRAIN_STEPS for v in launches.values()),
-          f"vgg16 train: each kernel should launch once a step: {launches}")
+    per_step = {k: 2 if k == "nms_sorted_mask" else 1 for k in launches}   # the NMS: mask, walk
+    check(all(v == per_step[k] * TRAIN_STEPS for k, v in launches.items()),
+          f"vgg16 train: each kernel should launch once a step (the NMS kernel twice): "
+          f"{launches}")
     after = model.state_dict()
     frozen_moved = [k for k, v in after.items()
                     if labels.get(k, "frozen") == "frozen" and not torch.equal(v, state0[k])]
@@ -2195,7 +2276,8 @@ def trainval_path(det_state: dict) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.engine.detect import detections_to_all_boxes
     from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
     from rlobjectdetection_tpu_torch.models import FasterRCNN
-    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
+                                                 stem_kernel)
 
     dev = torch.device("cuda")
     net, backbone = TRAINVAL_NET
@@ -2243,7 +2325,8 @@ def trainval_path(det_state: dict) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
                     "roi_align_avg": roi_align_kernel.roi_align_avg,
-                    "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+                    "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
+                    "nms_sorted_mask": nms_kernel.launch_nms}
         runs = {}
         for bs in (2, 8):
             torch.cuda.synchronize()
@@ -2519,7 +2602,8 @@ def data_layer_path(det_state: dict) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.engine.detect import detections_to_all_boxes
     from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
     from rlobjectdetection_tpu_torch.models import FasterRCNN
-    from rlobjectdetection_tpu_torch.ops import layer1_kernel, roi_align_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
+                                                 stem_kernel)
 
     dev = torch.device("cuda")
     net, backbone = TRAINVAL_NET
@@ -2529,7 +2613,8 @@ def data_layer_path(det_state: dict) -> tuple[dict, dict]:
     prev_root, cwd = os.environ.get("RLOD_DATA_DIR"), os.getcwd()
     counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
                 "roi_align_avg": roi_align_kernel.roi_align_avg,
-                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd}
+                "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
+                "nms_sorted_mask": nms_kernel.launch_nms}
     launches = {k: 0 for k in counters}
     errs = {}
     train_log = logging.getLogger("train")
@@ -3204,9 +3289,9 @@ def dispatcher_cost() -> None:
 @contextlib.contextmanager
 def without_dispatcher():
     """Every `rlod::` op replaced, as the wrappers look it up, by its CUDA
-    body called directly (the ctypes launch, or the NMS loop), so that a
-    request runs with no dispatcher between a wrapper and its kernel."""
-    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms, res_stage_kernel,
+    body called directly (the ctypes launch), so that a request runs with no
+    dispatcher between a wrapper and its kernel."""
+    from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, res_stage_kernel,
                                                  roi_align_kernel, stem_kernel,
                                                  vgg_block1_kernel)
     from rlobjectdetection_tpu_torch.ops.res_stage_kernel import blocks_of
@@ -3221,7 +3306,7 @@ def without_dispatcher():
         "vgg_block1": lambda x, packs, dtype: vgg_block1_kernel.launch_vgg_block1(
             x, dict(zip(VGG_KEYS, packs)), dtype),
         "roi_align_avg": roi_align_kernel._forward,
-        "nms_sorted_mask": nms._nms_sorted_mask,
+        "nms_sorted_mask": nms_kernel.launch_nms,
     }
     ns = torch.ops.rlod
     saved = {k: getattr(ns, k) for k in direct}
@@ -3287,10 +3372,12 @@ def export_path(det_state: dict, vgg_state: dict, images) -> dict:
     launches = {}
     try:
         for label, backbone, state, extra, kernels in (
-                ("flagship", "resnet101", det_state, [], ("stem", "layer1", "roi_align_avg")),
-                ("vgg16", "vgg16", vgg_state, [], ("vgg_block1", "roi_align_avg")),
+                ("flagship", "resnet101", det_state, [],
+                 ("stem", "layer1", "roi_align_avg", "nms_sorted_mask")),
+                ("vgg16", "vgg16", vgg_state, [],
+                 ("vgg_block1", "roi_align_avg", "nms_sorted_mask")),
                 ("flagship STAGE_FUSED=23", "resnet101", det_state, ["STAGE_FUSED", "23"],
-                 ("stem", "layer1", "res_stage", "roi_align_avg"))):
+                 ("stem", "layer1", "res_stage", "roi_align_avg", "nms_sorted_mask"))):
             t0 = time.perf_counter()
             cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16", *extra])
             model = FasterRCNN(NUM_CLASSES, backbone, cfg, device=dev, seed=3)
@@ -3470,6 +3557,107 @@ def roi_modes_path(det_state: dict, images) -> dict:
     return times
 
 
+# The NMS kernel at the main path's shapes (label, lanes, N, threshold,
+# max_keep): a train step's RPN proposals (2 images, top 12000, keep 2000),
+# a request's (top 6000, keep 300) and its per-class NMS (80 classes of 300
+# rois, top 100). Operations a pair of boxes, f32 and none an FMA: the
+# clipped width and height 5 each, the intersection 1, the union 2, the test
+# 2. The bound counts the pairs a greedy NMS with the max_keep stop needs:
+# those among each lane's candidates up to its stop, w (w - 1) / 2 for a lane
+# that walks w of its N (the kernel tests all N (N - 1) / 2: its words are
+# built before the walk knows where it stops).
+NMS_CASES = (("rpn train [2,12000]", 2, 12000, 0.7, 2000),
+             ("rpn serve [1,6000]", 1, 6000, 0.7, 300),
+             ("per-class [80,300]", 80, 300, 0.3, 100))
+NMS_PAIR_OPS = 15
+
+
+def nms_inputs(dev, lanes: int, n: int, seed: int):
+    """Boxes sorted by score and valid marks as the main path hands them to
+    `rlod::nms_sorted_mask`, from a random RPN: the flagship's anchors on an
+    800×1216 blob (50×76×12) decoded by deltas ~ N(0, 0.2) and clipped, the
+    top `n` of random scores (RPN lanes, all valid); for `n` of 300, the
+    top 300 as rois, each lane a class's decoded boxes of them in the
+    order of its own random scores, valid where the score passes 0.05."""
+    from rlobjectdetection_tpu_torch.ops.anchors import shifted_anchors
+    from rlobjectdetection_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
+
+    g = torch.Generator().manual_seed(seed)
+    anchors = torch.from_numpy(shifted_anchors(50, 76, 16, scales=(4, 8, 16, 32)))
+    im_hw = torch.tensor([[800.0, 1216.0]])
+    rpn_lanes = lanes if n > 300 else 1
+    deltas = torch.randn(rpn_lanes, anchors.shape[0], 4, generator=g) * 0.2
+    props = clip_boxes(bbox_transform_inv(anchors[None].expand(rpn_lanes, -1, -1), deltas),
+                       im_hw.expand(rpn_lanes, 2))
+    order = torch.argsort(torch.rand(rpn_lanes, anchors.shape[0], generator=g), dim=-1,
+                          descending=True)[:, :n]
+    boxes = torch.take_along_dim(props, order[..., None], 1)
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool)
+    if n <= 300:
+        deltas = torch.randn(lanes, n, 4, generator=g) * 0.2
+        boxes = clip_boxes(bbox_transform_inv(boxes.expand(lanes, -1, -1), deltas),
+                           im_hw.expand(lanes, 2))
+        scores = torch.rand(lanes, n, generator=g) ** 4
+        order = torch.argsort(scores, dim=-1, descending=True, stable=True)
+        boxes = torch.take_along_dim(boxes, order[..., None], 1)
+        valid = torch.take_along_dim(scores, order, 1) > 0.05
+    return boxes.contiguous().to(dev), valid.contiguous().to(dev)
+
+
+def nms_path(flush) -> dict:
+    """The NMS kernel at NMS_CASES: its mask against the op's plain body on
+    the card (each lane the same through its max_keep-th survivor, False
+    after it) and without max_keep (the same to the bit); the kernel's time
+    as a CUDA graph of its launches, the wrapper's as called, the body's,
+    and the bound. Returns {label: result}."""
+    from rlobjectdetection_tpu_torch.ops import nms as nms_mod
+    from rlobjectdetection_tpu_torch.ops import nms_kernel
+
+    dev = torch.device("cuda")
+    print(f"nms launch resources (registers a thread, static shared memory bytes a CTA, "
+          f"spill bytes a thread): {nms_kernel.nms_info()}", flush=True)
+    out = {}
+    for i, (label, lanes, n, thr, max_keep) in enumerate(NMS_CASES):
+        boxes, valid = nms_inputs(dev, lanes, n, seed=11 + i)
+        before = nms_kernel.launch_nms.launches
+        got = nms_mod.nms_sorted_mask(boxes, valid, thr, max_keep=max_keep)
+        torch.cuda.synchronize()
+        launches = nms_kernel.launch_nms.launches - before
+        full = nms_mod.nms_sorted_mask(boxes, valid, thr)
+        want_full = nms_mod._nms_sorted_mask(boxes, valid, thr, 256, None)
+        want = nms_mod._nms_sorted_mask(boxes, valid, thr, 256, max_keep)
+        check(torch.equal(full, want_full), f"nms {label}: the mask without max_keep differs "
+              f"from the plain body's")
+        survivors = want.to(torch.int32).cumsum(-1) - want.to(torch.int32)
+        upto = survivors < max_keep
+        # |kernel - body| over what the contract compares: every position
+        # without max_keep; through each lane's max_keep-th survivor with it,
+        # and against False after it
+        err = max(int((full.int() - want_full.int()).abs().max()) if full.numel() else 0,
+                  int((got.int() - (want & upto).int()).abs().max())
+                  if got.numel() else 0)
+        check(err == 0, f"nms {label}: the mask leaves the plain body's (without max_keep, "
+              f"or before the {max_keep}-th survivor) or marks a box after that survivor")
+        kept = want_full.sum(-1)
+        walked = [int(torch.searchsorted(c, max_keep)) + 1 if c[-1] >= max_keep else n
+                  for c in want_full.to(torch.int64).cumsum(-1)]
+        ops = NMS_PAIR_OPS * sum(w * (w - 1) / 2 for w in walked)
+        b_ms, b_by = bound(nbytes(boxes, valid, got), ops, F32_OPS)
+        run = lambda: nms_mod.nms_sorted_mask(boxes, valid, thr, max_keep=max_keep)
+        r = dict(err=(float(err), float(err)), ms=graph_ms(run, flush),
+                 wrapper_ms=time_ms(run, flush),
+                 plain_ms=time_ms(lambda: nms_mod._nms_sorted_mask(boxes, valid, thr, 256,
+                                                                   max_keep), flush),
+                 library_ms=None, bound_ms=b_ms, bound_by=b_by, launches=launches)
+        print(f"nms {label} at {thr} (max_keep {max_keep}): kernel_ms {r['ms']:.4f} (graph of "
+              f"the launches), wrapper_ms {r['wrapper_ms']:.4f}, plain_ms {r['plain_ms']:.4f}, "
+              f"bound_ms {r['bound_ms']:.4f} ({b_by}), launches {launches} a call; greedy keeps "
+              f"{kept.min().item()}-{kept.max().item()} a lane, the walk stops after "
+              f"{min(walked)}-{max(walked)} of {n}; masks equal the plain body's", flush=True)
+        out[label] = r
+    return out
+
+
 def report(name, r, launches, label=None) -> None:
     wrapper = f"wrapper_ms {r['wrapper_ms']:.4f}, " if "wrapper_ms" in r else ""
     print(f"{label or name}: kernel_ms {r['ms']:.4f}, {wrapper}plain_ms {r['plain_ms']:.4f}, "
@@ -3510,6 +3698,9 @@ def main() -> None:
               f"{vgg_block1_kernel.vgg_block1_info(dtype)}, res_stage "
               f"{res_stage_kernel.res_stage_info(dtype)}, roi_align_avg_bwd "
               f"{roi_align_kernel.roi_align_bwd_info(dtype)}", flush=True)
+
+    # 2b. the NMS kernel at the main path's shapes
+    nms_results = nms_path(torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
 
     # 3. the two served detectors, one after the other (the first freed
     # before the second, so each path's peak memory is its own)
@@ -3604,7 +3795,10 @@ def main() -> None:
                     roi_align_avg_bwd=(train_launches["roi_align_avg_bwd"]
                                        + vgg_train_launches["roi_align_avg_bwd"]
                                        + cli_launches["roi_align_avg_bwd"]
-                                       + data_launches["roi_align_avg_bwd"]))
+                                       + data_launches["roi_align_avg_bwd"]),
+                    nms_sorted_mask=sum(p["nms_sorted_mask"] for p in (
+                        launches, eval_launches, vgg_launches, train_launches,
+                        vgg_train_launches, cli_launches, data_launches)))
     for phase in (dp_launches, export_launches):  # each counted in the process that ran it
         launches = {k: n + phase.get(k, 0) for k, n in launches.items()}
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
@@ -3663,6 +3857,20 @@ def main() -> None:
           f"train path: {vgg_train_launches}; training CLI at batch 2: {cli_launches}; RL CLI: "
           f"{rl_cli_launches}; data phase: {data_launches}; dp phase: {dp_launches}; export "
           f"phase: {export_launches}", flush=True)
+    # the NMS rows: each case's launches on the main path (the flagship's
+    # requests and train steps, counted by shape there)
+    where_nms = {(2, 12000): f"{TRAIN_STEPS} resnet101 train steps",
+                 (1, 6000): "3 flagship requests", (80, 300): "3 flagship requests"}
+    for (label, lanes, n, _, _), r in zip(NMS_CASES, nms_results.values()):
+        calls, main_launches = NMS_MAIN_PATH[(lanes, n)]
+        kernels.append({"name": f"nms_sorted_mask {label}", "route": "cuda",
+                        "source": "rlobjectdetection_tpu_torch/csrc/nms.cu",
+                        "replaces": "none (XLA in JAX; ops/nms.py's plain body)",
+                        "launches": main_launches, "max_abs_err": r["err"][0], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+        print(f"nms_sorted_mask {label}: {main_launches} launches in {calls} calls on the "
+              f"main path ({where_nms[(lanes, n)]}), max_abs_err {r['err'][0]}", flush=True)
     print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,15 +8,17 @@ of the same arithmetic. A `register_fake` gives each output's shape and
 dtype, so `torch.export` traces a model through the ops as opaque calls
 and an exported program launches the same kernels. `rlod::roi_align_avg`
 carries its backward (`rlod::roi_align_avg_bwd`, a kernel too).
-`rlod::nms_sorted_mask` is the NMS loop of `ops/nms.py`, opaque because it
-waits on the host between its steps (no kernel: ROADMAP §2 item 12).
+`rlod::nms_sorted_mask` is the greedy NMS of `ops/nms.py`: on a CUDA tensor
+the bitmask kernel of `csrc/nms.cu` (`ops/nms_kernel.py`), on a CPU tensor
+the op's plain body, Jacobi sweeps that wait on the host between steps.
 
 Importing this module registers the ops; it imports no model code, so a
 program exported with the ops replays after `import
 rlobjectdetection_tpu_torch.ops.library` alone. The kernel wrappers
 (`fused_stem`, `fused_layer1`, `fused_res_stage`, `fused_vgg_block1`,
-`roi_align_avg`) call these ops, and each kernel's launch count lives on
-its wrapper as before.
+`roi_align_avg`; `ops/nms.py::nms_sorted_mask`) call these ops, and each
+kernel's launch count lives on its wrapper as before (the NMS's on
+`nms_kernel.launch_nms`).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import List, Optional
 
 import torch
 
-from . import layer1_kernel, res_stage_kernel, roi_align_kernel, stem_kernel, vgg_block1_kernel
+from . import (layer1_kernel, nms_kernel, res_stage_kernel, roi_align_kernel, stem_kernel,
+               vgg_block1_kernel)
 from .nms import _nms_sorted_mask
 from .res_stage_kernel import blocks_of
 from .vgg_block1_kernel import VGG_KEYS
@@ -35,7 +38,8 @@ WRAPPERS = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1
             "roi_align_avg": roi_align_kernel.roi_align_avg,
             "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
             "vgg_block1": vgg_block1_kernel.fused_vgg_block1,
-            "res_stage": res_stage_kernel.fused_res_stage}
+            "res_stage": res_stage_kernel.fused_res_stage,
+            "nms_sorted_mask": nms_kernel.launch_nms}
 
 
 # -- the stem ------------------------------------------------------------------
@@ -162,6 +166,11 @@ roi_align_avg.register_autograd(_roi_backward, setup_context=_roi_setup)
 def nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
                     tile_size: int, max_keep: Optional[int]) -> torch.Tensor:
     return _nms_sorted_mask(boxes, valid, iou_threshold, tile_size, max_keep)
+
+
+@nms_sorted_mask.register_kernel("cuda")
+def _(boxes, valid, iou_threshold, tile_size, max_keep):
+    return nms_kernel.launch_nms(boxes, valid, iou_threshold, tile_size, max_keep)
 
 
 @nms_sorted_mask.register_fake

@@ -13,8 +13,10 @@ Within a tile the "suppresses" relation is a DAG in score order, so a Jacobi
 iteration reaches its unique fixpoint, the sequential greedy result, in at
 most the depth of the longest suppression chain. All functions take any
 leading batch dimensions (the per-class NMS of post-processing runs the
-classes as one batch). There is no NMS kernel: the JAX package retired both
-of its Pallas NMS variants.
+classes as one batch). That loop is the op's plain body, which runs on CPU
+tensors; on CUDA tensors the op is the bitmask kernel of `csrc/nms.cu`
+(`ops/nms_kernel.py`), with no host read. The JAX package has no NMS
+kernel: it retired both of its Pallas variants.
 """
 
 from __future__ import annotations
@@ -38,10 +40,21 @@ def _suppresses(a: torch.Tensor, b: torch.Tensor, thr: float, small: bool):
 def nms_sorted_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
                     tile_size: int = 256, max_keep: int | None = None) -> torch.Tensor:
     """Greedy keep-mask `[..., N]` for boxes `[..., N, 4]` already sorted by
-    descending score. With `max_keep`, tiles stop once every batch lane has
-    kept that many boxes: the first `max_keep` survivors are final then.
-    Runs as the op `rlod::nms_sorted_mask` (`ops/library.py`): its loop
-    waits on the host between steps, so `torch.export` keeps it opaque."""
+    descending score; `valid` `[..., N]` marks the boxes that may be kept
+    (an invalid box neither keeps nor suppresses). A box is suppressed by a
+    kept earlier one whose IoU with it (+1 convention, f32) exceeds the
+    threshold, compared as `inter > thr·union` for N <= 2·tile_size and as
+    `inter / union > thr` above.
+
+    Runs as the op `rlod::nms_sorted_mask` (`ops/library.py`), which
+    `torch.export` keeps opaque: on CPU tensors its plain body
+    `_nms_sorted_mask`, on CUDA tensors the kernel of `csrc/nms.cu`. With
+    `max_keep` None the two give the same mask to the bit. With `max_keep`
+    each lane's mask is the same up to and including its `max_keep`-th
+    survivor, where the kernel stops that lane (False after it), while the
+    body stops at a tile boundary once every lane has kept that many and
+    may mark more after it; the first `max_keep` survivors, all that
+    `nms_select` reads, are the same."""
     return torch.ops.rlod.nms_sorted_mask(boxes, valid, float(iou_threshold), int(tile_size),
                                           max_keep)
 

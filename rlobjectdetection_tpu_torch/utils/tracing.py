@@ -9,6 +9,7 @@
     tracing.spans()    # [{name, id, parent, root, thread, attrs, counts, profiled,
                        #   t_start, t_end}]
     tracing.totals()   # {"nms.host_syncs": 7, ...}
+    tracing.enabled()  # True: a count that reads the card is taken now
 
 The recorder is off until `enable()`. Off, and with no `torch.profiler`
 recording, `span()` returns one shared object that does nothing: it reads
@@ -157,6 +158,12 @@ def enable() -> None:
     """Starts recording spans in memory."""
     global _on
     _on = True
+
+
+def enabled() -> bool:
+    """Whether the recorder is on (for a count that costs a read of the
+    card, taken only while recording)."""
+    return _on
 
 
 def disable() -> None:

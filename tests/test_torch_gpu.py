@@ -753,3 +753,154 @@ def test_demo_on_one_image_on_the_card(cuda, voc_root):
     want = Detector(model, model.cfg, cuda).detect(read_image_bgr(str(images / "000000.jpg")))
     for got, w in zip(dets["000000.jpg"], want):
         np.testing.assert_array_equal(got, w)
+
+
+# -- NMS ---------------------------------------------------------------------------
+
+def _nms_boxes(rng, lanes, n):
+    """`[lanes, n, 4]` f32 boxes in score order: jittered clusters (the
+    RPN's and a class's overlaps) and scattered boxes, half of them on
+    integers, with pairs whose IoU is exactly 0.7 or 0.3 in f32 (widths 17
+    over 3 px, 13 over 7 px, any height), duplicates of earlier boxes and
+    boxes one pixel wide or high."""
+    centres = rng.rand(lanes, max(1, n // 40), 2) * 900 + 50
+    pick = rng.randint(0, centres.shape[1], (lanes, n))
+    ctr = np.take_along_axis(centres, pick[..., None], 1) + rng.randn(lanes, n, 2) * 8
+    ctr = np.where(rng.rand(lanes, n, 1) < 0.2, rng.rand(lanes, n, 2) * 1000, ctr)
+    wh = 20 + rng.rand(lanes, 1, 2) * 80 * np.exp(rng.randn(lanes, n, 2) * 0.2)
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    boxes = np.where(rng.rand(lanes, n, 1) < 0.5, np.round(boxes), boxes)
+    for lane in range(lanes):
+        for _ in range(n // 20):                       # a tie pair at i < j
+            i, j = np.sort(rng.choice(n, 2, replace=False))
+            x, y, h = rng.randint(0, 900), rng.randint(0, 900), rng.randint(1, 60)
+            w, s = (17, 3) if rng.rand() < 0.5 else (13, 7)
+            boxes[lane, i] = (x, y, x + w - 1, y + h - 1)
+            boxes[lane, j] = (x + s, y, x + s + w - 1, y + h - 1)
+        for _ in range(n // 20):                       # a duplicate
+            i, j = np.sort(rng.choice(n, 2, replace=False))
+            boxes[lane, j] = boxes[lane, i]
+        thin = rng.rand(n) < 0.03                      # one pixel wide or high
+        boxes[lane, thin, 2] = boxes[lane, thin, 0]
+        flat = rng.rand(n) < 0.03
+        boxes[lane, flat, 3] = boxes[lane, flat, 1]
+    return boxes.astype(np.float32)
+
+
+def _prefix_equal(got, want, max_keep):
+    """Each lane equal through its `max_keep`-th survivor of `want`, False after it."""
+    before = want.to(torch.int32).cumsum(-1) - want.to(torch.int32)
+    upto = before < max_keep
+    return bool(torch.equal(got[upto], want[upto]) and not got[~upto].any())
+
+
+# (lanes, N, tile_size): the op's edges at the 64-box words and at the one-CTA
+# limit (512), the main path's shapes (per-class 80 and 1600 × 300, RPN 6000
+# and 2 × 12000), and the IoU form against the kernel's path (300 boxes in
+# the divided form, 600 in the product form)
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_keep", [None, 100, 300, 2000])
+@pytest.mark.parametrize("thresh", [0.3, 0.7])
+@pytest.mark.parametrize("lanes,n,tile", [
+    (1, 0, 256), (1, 1, 256), (1, 63, 256), (1, 64, 256), (1, 65, 256), (80, 300, 256),
+    (1, 512, 256), (1, 513, 256), (1, 6000, 256), (2, 12000, 256), (1600, 300, 256),
+    (3, 300, 64), (2, 600, 512)])
+def test_nms_kernel_matches_the_plain_body(cuda, monkeypatch, lanes, n, tile, thresh, max_keep):
+    """`rlod::nms_sorted_mask` on the card (the kernel) against the op's body
+    `_nms_sorted_mask` on the same tensors: the same mask to the bit without
+    `max_keep`, each lane's mask through its `max_keep`-th survivor with it;
+    `nms_select` gives the same outputs to the bit either way."""
+    from rlobjectdetection_tpu_torch.ops import nms as nms_mod
+    from rlobjectdetection_tpu_torch.ops.nms_kernel import launch_nms, scratch_words
+
+    rng = np.random.RandomState(lanes * 100003 + n * 7 + tile + int(thresh * 10))
+    boxes = torch.from_numpy(_nms_boxes(rng, lanes, n)).to(cuda)
+    valid = torch.from_numpy(rng.rand(lanes, n) > 0.15).to(cuda)
+    n0 = launch_nms.launches
+    got = nms_mod.nms_sorted_mask(boxes, valid, thresh, tile_size=tile, max_keep=max_keep)
+    torch.cuda.synchronize()
+    one_launch = scratch_words(lanes, n) == 0
+    assert launch_nms.launches == n0 + (0 if n == 0 else 1 if one_launch else 2)
+    want = nms_mod._nms_sorted_mask(boxes, valid, thresh, tile, max_keep)
+    assert got.dtype == torch.bool and got.shape == valid.shape and got.is_cuda
+    if max_keep is None:
+        assert torch.equal(got, want)
+    else:
+        assert _prefix_equal(got, want, max_keep)
+    if lanes * n <= 20000:                            # the body on the CPU agrees
+        assert torch.equal(nms_mod._nms_sorted_mask(boxes.cpu(), valid.cpu(), thresh, tile,
+                                                    max_keep), want.cpu())
+
+    if n == 0:                                        # nms_select takes N >= 1
+        return
+    scores = torch.from_numpy(np.round(rng.rand(lanes, n), 2).astype(np.float32)).to(cuda)
+    max_out = n if max_keep is None else max_keep
+    sel = nms_mod.nms_select(boxes, scores, thresh, max_out, valid=valid, tile_size=tile)
+    monkeypatch.setattr(nms_mod, "nms_sorted_mask",
+                        lambda b, v, t, tile_size, max_keep: nms_mod._nms_sorted_mask(
+                            b, v, t, tile_size, max_keep))
+    plain = nms_mod.nms_select(boxes, scores, thresh, max_out, valid=valid, tile_size=tile)
+    for g, w in zip(sel, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_nms_kernel_counts_its_calls_and_walked_candidates(cuda):
+    """With the recorder on, one call counts `nms.kernel_calls` 1, no host
+    sync, and `nms.walked` the candidates up to each lane's `max_keep`-th
+    survivor (all of a lane that keeps fewer); with it off, the call counts
+    itself and reads nothing back."""
+    from rlobjectdetection_tpu_torch.ops import nms as nms_mod
+    from rlobjectdetection_tpu_torch.utils import tracing
+
+    rng = np.random.RandomState(5)
+    boxes = torch.from_numpy(_nms_boxes(rng, 2, 6000)).to(cuda)
+    valid = torch.from_numpy(rng.rand(2, 6000) > 0.15).to(cuda)
+    want = nms_mod._nms_sorted_mask(boxes, valid, 0.7, 256, None)
+    csum = want.to(torch.int64).cumsum(-1)
+    walked = sum(int(torch.searchsorted(c, 300)) + 1 if c[-1] >= 300 else 6000 for c in csum)
+    tracing.reset()
+    tracing.enable()
+    try:
+        nms_mod.nms_sorted_mask(boxes, valid, 0.7, max_keep=300)
+        nms_mod.nms_sorted_mask(boxes[:, :300].contiguous(), valid[:, :300].contiguous(), 0.3)
+    finally:
+        tracing.disable()
+    big, small = tracing.spans()
+    assert big["name"] == small["name"] == "model.nms"
+    assert big["counts"] == {"nms.kernel_calls": 1, "nms.walked": walked}
+    assert small["counts"] == {"nms.kernel_calls": 1, "nms.walked": 600}
+    nms_mod.nms_sorted_mask(boxes, valid, 0.7, max_keep=300)
+    assert tracing.totals() == {"nms.kernel_calls": 3, "nms.walked": walked + 600}
+    tracing.reset()
+
+
+@pytest.mark.gpu
+def test_nms_kernel_refuses_what_it_does_not_take(cuda):
+    from rlobjectdetection_tpu_torch.ops import nms as nms_mod
+    from rlobjectdetection_tpu_torch.ops.nms_kernel import launch_nms, scratch_words
+
+    # the C side's scratch: none at N <= 512, the words of every lane above
+    # it, and too many lanes refused before any allocation
+    assert scratch_words(70000, 512) == 0 and scratch_words(2, 513) == 2 * 9 * 513
+    assert scratch_words(65536, 513) == -1
+    boxes = torch.rand(2, 8, 4, device=cuda)
+    valid = torch.ones(2, 8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        launch_nms(torch.rand(8, 2, 4, device=cuda).transpose(0, 1), valid, 0.5, 256, None)
+    with pytest.raises(ValueError, match="f32"):
+        launch_nms(boxes.double(), valid, 0.5, 256, None)
+    with pytest.raises(ValueError, match="f32"):
+        launch_nms(boxes[0, 0], valid[0, 0], 0.5, 256, None)          # rank 1
+    with pytest.raises(ValueError, match="f32"):
+        launch_nms(torch.rand(2, 8, 5, device=cuda), valid, 0.5, 256, None)
+    with pytest.raises(ValueError, match="bool"):
+        launch_nms(boxes, valid.to(torch.uint8), 0.5, 256, None)
+    with pytest.raises(ValueError, match="bool"):
+        launch_nms(boxes, valid[:, :4], 0.5, 256, None)
+    with pytest.raises(ValueError, match="bool"):
+        launch_nms(boxes, valid.cpu(), 0.5, 256, None)
+    with pytest.raises(ValueError, match="max_keep"):
+        launch_nms(boxes, valid, 0.5, 256, -1)
+    with pytest.raises(ValueError, match="contiguous"):                # through the op
+        nms_mod.nms_sorted_mask(torch.rand(8, 2, 4, device=cuda).transpose(0, 1), valid, 0.5)

@@ -188,18 +188,28 @@ def test_roi_align_out_of_bounds_zeroed(rng):
 
 
 def test_wrappers_count_only_kernel_launches(rng):
-    """On CPU tensors the wrappers run the plain versions and count nothing;
-    a tensor on any other non-CUDA device is refused."""
+    """On CPU tensors the wrappers run the plain versions and count nothing
+    (the NMS op its plain body, no kernel call); a tensor on any other
+    non-CUDA device is refused."""
+    from rlobjectdetection_tpu_torch.ops import nms, nms_kernel
+    from rlobjectdetection_tpu_torch.utils import tracing
+
     counters = (stem_kernel.fused_stem, layer1_kernel.fused_layer1,
-                roi_align_kernel.roi_align_avg)
+                roi_align_kernel.roi_align_avg, nms_kernel.launch_nms)
     before = [f.launches for f in counters]
+    calls = tracing.totals().get("nms.kernel_calls", 0)
     args = _torch_stem_args(*_stem_inputs(rng, 1, 20, 24))
     stem_kernel.fused_stem(*args, dtype=torch.float32)
     feats = torch.from_numpy(rng.randn(1, 6, 8, 32).astype(np.float32))
     roi_align_kernel.roi_align_avg(feats, torch.from_numpy(_rand_rois(rng, 4, 1, 90, 60)))
+    boxes = torch.from_numpy(_rand_rois(rng, 20, 1, 90, 60)[:, 1:].copy())
+    nms.nms_sorted_mask(boxes, torch.ones(20, dtype=torch.bool), 0.5, max_keep=5)
     assert [f.launches for f in counters] == before
+    assert tracing.totals().get("nms.kernel_calls", 0) == calls
     with pytest.raises(ValueError, match="unsupported device"):
         roi_align_kernel.roi_align_avg(feats.to("meta"), torch.zeros(4, 5, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        nms_kernel.launch_nms(boxes, torch.ones(20, dtype=torch.bool), 0.5, 256, None)
 
 
 def test_build_reports_missing_nvcc():
