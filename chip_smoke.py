@@ -17,6 +17,14 @@ wrapper, the plain body, the bound (the pairs up to each lane's max_keep
 stop, at 33.5 T f32 instructions a second, none an FMA; bytes on 3.35 TB/s)
 and its launches a call; its rows in the kernels line take their launches
 from the flagship's requests and train steps, counted there by shape.
+Then the FPN detector's multi-level RoIAlignV2 kernels (`csrc/
+roi_align_levels.cu`, forward and backward) at its training cell's shapes
+against their plain versions (`fpn_path`), and the FPN detector on the main
+path (`fpn_main_path`: `build_detector(..., "resnet101_fpn")`, three train
+steps at batch 2 on 800×1216 and one served request, each kernel's launches
+counted from 0 and checked; the op against the plain versions on the rois a
+step pooled); the pooler's rows in the kernels line take their launches
+from there. `python3 chip_smoke.py fpn` runs those two phases alone.
 Then, for each of the two served
 detectors (81 COCO classes, 800×1216, bf16 compute, seeded random weights)
 behind `Detector`:
@@ -210,6 +218,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import math
 import re
 import statistics
 import subprocess
@@ -3658,6 +3667,221 @@ def nms_path(flush) -> dict:
     return out
 
 
+# The FPN pooler's kernels against their plain versions on the card: the
+# forward sums each bin's samples in f32 in another order than the plain
+# version, so in bf16 an output may round to the neighbouring bf16 value (2^-7
+# of the largest output covers one step at any magnitude below it); in f32
+# the orders differ by f32 rounding (1e-5 of the largest). The backward's
+# atomics add in an order that changes from launch to launch: the same
+# bounds.
+FPN_TOLS = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+FPN_MAPS = ((200, 304), (100, 152), (50, 76), (25, 38))      # P2..P5 of 800×1216
+FPN_ROIS = 1024                                               # 2 images × 512
+
+
+def fpn_rois(dev, n: int, seed: int, h: int = 800, w: int = 1216) -> torch.Tensor:
+    """`[n, 5]` rois over 2 images of h×w: sides log-uniform over 8..1000
+    pixels (every level gets some), centres anywhere in the image (some
+    boxes cross its edges), and a few degenerate ones (zero width)."""
+    g = torch.Generator().manual_seed(seed)
+    side = torch.exp(torch.empty(n, 2).uniform_(math.log(8.0), math.log(1000.0), generator=g))
+    ctr = torch.rand(n, 2, generator=g) * torch.tensor([w, h])
+    boxes = torch.cat([ctr - side / 2, ctr + side / 2], 1)
+    boxes[: n // 64, 2] = boxes[: n // 64, 0]
+    batch = (torch.arange(n) % 2).float()[:, None]
+    return torch.cat([batch, boxes], 1).contiguous().to(dev)
+
+
+def fpn_path(flush) -> dict:
+    """The FPN detector's multi-level RoIAlignV2 (`rlod::roi_align_levels`,
+    `csrc/roi_align_levels.cu`) at the training cell's shapes (P2..P5 of
+    two 800×1216 blobs, 256 channels, 1024 rois), forward and backward, in
+    bf16 and f32, against the plain versions on the card; the kernels' time
+    (a CUDA graph of the launch), the plain versions', and the bound (the
+    four maps and rois read and the output written once, or for the
+    backward the gradient read and the four maps' gradients written; 8
+    f32 operations a channel for one bilinear sample a bin). Returns
+    {label: result}."""
+    from rlobjectdetection_tpu_torch.ops import roi_align_levels as lv
+
+    dev = torch.device("cuda")
+    out = {}
+    rois = fpn_rois(dev, FPN_ROIS, seed=5)
+    per = torch.bincount(lv.roi_levels(rois), minlength=4).tolist()
+    g = torch.Generator(device=dev).manual_seed(9)
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = [torch.randn((2, h, w, 256), generator=g, device=dev).to(dtype)
+                 for h, w in FPN_MAPS]
+        got = lv._forward(*feats, rois)
+        want = lv.roi_align_levels_plain(feats, rois)
+        err = max_errs(got, want)
+        check(err[1] <= FPN_TOLS[dtype], f"roi_align_levels {dtype}: max rel {err[1]:.3e} "
+              f"over the bound {FPN_TOLS[dtype]:.1e}")
+        grad = torch.randn(got.shape, generator=g, device=dev).to(dtype)
+        shapes = [int(x) for f in feats for x in f.shape]
+        gots = lv.roi_align_levels_bwd(grad, rois, shapes)
+        wants = lv.roi_align_levels_plain_backward(grad, rois, lv._level_shapes(shapes), dtype)
+        berr = max(max_errs(a, b)[1] for a, b in zip(gots, wants))
+        check(berr <= FPN_TOLS[dtype], f"roi_align_levels backward {dtype}: max rel "
+              f"{berr:.3e} over the bound {FPN_TOLS[dtype]:.1e}")
+        flops = 8.0 * FPN_ROIS * 49 * 256
+        fb_ms, fb_by = bound(nbytes(*feats, rois, got), flops, F32_FLOPS)
+        bb_ms, bb_by = bound(nbytes(grad, rois, *gots), flops, F32_FLOPS)
+        name = str(dtype)[6:]
+        r_f = dict(err=err, ms=graph_ms(lambda: lv._forward(*feats, rois), flush),
+                   plain_ms=time_ms(lambda: lv.roi_align_levels_plain(feats, rois), flush,
+                                    reps=5),
+                   library_ms=None, bound_ms=fb_ms, bound_by=fb_by)
+        r_b = dict(err=(berr, berr), ms=graph_ms(lambda: lv.roi_align_levels_bwd(grad, rois,
+                                                                                   shapes), flush),
+                   plain_ms=time_ms(lambda: lv.roi_align_levels_plain_backward(
+                       grad, rois, lv._level_shapes(shapes), dtype), flush, reps=5),
+                   library_ms=None, bound_ms=bb_ms, bound_by=bb_by)
+        for label, r in ((f"roi_align_levels {name}", r_f),
+                         (f"roi_align_levels_bwd {name}", r_b)):
+            print(f"{label} ({FPN_ROIS} rois, {per} on P2..P5): kernel_ms {r['ms']:.4f} (graph "
+                  f"of the launch), plain_ms {r['plain_ms']:.4f}, bound_ms {r['bound_ms']:.4f} "
+                  f"({r['bound_by']}), max rel {r['err'][1]:.3e} (bound "
+                  f"{FPN_TOLS[dtype]:.1e})", flush=True)
+            out[label] = r
+    return out
+
+
+def fpn_main_path(images, flush) -> tuple[dict, dict]:
+    """The FPN detector on the port's main path: `build_detector(...,
+    "resnet101_fpn")` with the recipe's config (`build_config(net=
+    "res101_fpn")`), TRAIN_STEPS bf16 train steps at batch 2 on 800×1216
+    blobs and one served request, every counted kernel's launches set to 0
+    just before and checked after (the pooler and its backward exactly once
+    a step); then the op `rlod::roi_align_levels` and its autograd backward
+    against the plain versions on the rois and maps the last step pooled,
+    with the op's time there. Returns ({label: result} on those rois, the
+    launches over the steps and the request)."""
+    from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import build_detector
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import nchw_to_nhwc
+    from rlobjectdetection_tpu_torch.ops import layer1_kernel, nms_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import roi_align_levels as lv
+
+    dev = torch.device("cuda")
+    cfg = build_config("coco", ["DTYPE", "bfloat16"], net="res101_fpn")
+    t = cfg.TRAIN
+    check(cfg.CONV1_FUSED and cfg.LAYER1_FUSED and cfg.RESNET.FIXED_BLOCKS == 1
+          and (t.RPN_PRE_NMS_TOP_N, t.RPN_POST_NMS_TOP_N, t.BATCH_SIZE) == (2000, 1000, 512)
+          and cfg.TEST.SCALES == (800,), f"FPN config expected, got {cfg}")
+    model = build_detector(NUM_CLASSES, "resnet101_fpn", cfg, device=dev, seed=3)
+    randomize_frozen_bn(model, seed=3)
+    batch = train_batch(dev)
+    counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
+                "roi_align_levels": lv.roi_align_levels,
+                "roi_align_levels_bwd": lv.roi_align_levels_bwd,
+                "nms_sorted_mask": nms_kernel.launch_nms}
+    # the recipe's linear warm-up (factor 0.001 over 1000 steps): at 0.02
+    # from the first step the random net's losses leave the finite range
+    opt, sched, _ = build_optimizer(
+        model, "resnet101_fpn", t.LEARNING_RATE, weight_decay=t.WEIGHT_DECAY,
+        double_bias=t.DOUBLE_BIAS, bias_decay=t.BIAS_DECAY, fixed_blocks=1,
+        lr_schedule=lambda n: t.LEARNING_RATE * (0.001 + 0.999 * min(n / 1000, 1.0)))
+    step = make_train_step(model, opt, sched)
+    pooled = []
+    scores = model._scores
+
+    def recording(feats, rois):
+        pooled[:] = [[nchw_to_nhwc(f).detach() for f in feats[:4]],
+                     rois.reshape(-1, 5).detach().contiguous()]
+        return scores(feats, rois)
+
+    model._scores = recording
+    gen = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        before = {k: f.launches for k, f in counters.items()}
+        t0 = time.perf_counter()
+        with nms_by_shape() as nms_calls:
+            metrics = step(batch, gen)
+            loss = float(metrics["loss"])               # ends in a device sync
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        moved = {k: f.launches - before[k] for k, f in counters.items()}
+        # a step: the proposal layer's NMS over 2 images × 5 levels of at
+        # most 2000 boxes (two launches); the pooler once forward, once back
+        check(nms_calls == {(10, 2000): [1, 2]}, f"fpn train step {i}: NMS kernel calls by "
+                                                 f"shape {nms_calls}, expected one of [10, 2000]")
+        check(all(moved.values()) and moved["roi_align_levels"] == 1
+              and moved["roi_align_levels_bwd"] == 1,
+              f"fpn train step {i}: kernel launches {moved}, the pooler's expected once each")
+        check(np.isfinite(loss), f"fpn train step {i}: loss {loss}")
+        print(f"fpn train step {i}: {step_ms[-1]:.2f} ms, loss {loss:.5f}, launches {moved}",
+              flush=True)
+    model._scores = scores
+    feats, rois = pooled
+    del opt, sched, step, pooled
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(rois.shape) == (FPN_ROIS, 5), f"fpn pooled rois {tuple(rois.shape)}")
+
+    # one served request: the proposal layer's NMS over 5 levels of at most
+    # 1000 boxes; the pooler forward alone
+    detector = Detector(model, cfg, dev)
+    before = {k: f.launches for k, f in counters.items()}
+    t0 = time.perf_counter()
+    with nms_by_shape() as nms_calls:
+        boxes, det_scores, classes, valid = detector.detect(images[0])
+    request_ms = (time.perf_counter() - t0) * 1e3
+    moved = {k: f.launches - before[k] for k, f in counters.items()}
+    check(boxes.shape == (100, 4) and np.isfinite(boxes).all() and np.isfinite(det_scores).all(),
+          f"fpn request: boxes {boxes.shape}")
+    check(nms_calls.get((5, 1000)) == [1, 2], f"fpn request: NMS kernel calls by shape "
+                                              f"{nms_calls}, expected one of [5, 1000]")
+    check(all(v for k, v in moved.items() if k != "roi_align_levels_bwd")
+          and moved["roi_align_levels"] == 1 and moved["roi_align_levels_bwd"] == 0,
+          f"fpn request: kernel launches {moved}")
+    launches = {k: f.launches for k, f in counters.items()}
+    print(f"fpn path: {TRAIN_STEPS} train steps at batch {TRAIN_BATCH} x {BLOB_SHAPE[1]}x"
+          f"{BLOB_SHAPE[2]}, step ms {[round(v, 3) for v in step_ms]}, peak memory {peak} "
+          f"bytes; 1 request {request_ms:.2f} ms ({int(valid.sum())} detections over the "
+          f"score threshold {model.test_score_thresh}, NMS calls {nms_calls}); launches "
+          f"{launches}", flush=True)
+
+    # the op and its backward on the rois and maps the last step pooled
+    per = torch.bincount(lv.roi_levels(rois), minlength=4).tolist()
+    g = torch.Generator(device=dev).manual_seed(11)
+    dtype = feats[0].dtype
+    tol = FPN_TOLS[dtype]
+    with torch.no_grad():
+        got = lv.roi_align_levels(feats, rois)
+    err = max_errs(got, lv.roi_align_levels_plain(feats, rois))
+    check(err[1] <= tol, f"rlod::roi_align_levels on the step's rois: max rel {err[1]:.3e} "
+                         f"over the bound {tol:.1e}")
+    grad = torch.randn(got.shape, generator=g, device=dev).to(dtype)
+    leaves = [f.clone().requires_grad_(True) for f in feats]
+    lv.roi_align_levels(leaves, rois).backward(grad)
+    wants = lv.roi_align_levels_plain_backward(grad, rois, [tuple(f.shape) for f in feats],
+                                               dtype)
+    berr = max(max_errs(f.grad, w)[1] for f, w in zip(leaves, wants))
+    check(berr <= tol, f"rlod::roi_align_levels backward on the step's rois: max rel "
+                       f"{berr:.3e} over the bound {tol:.1e}")
+    shapes = [int(x) for f in feats for x in f.shape]
+    out = {}
+    for label, e, kernel, op, what in (
+            ("roi_align_levels", err, lambda: lv._forward(*feats, rois),
+             lambda: lv.roi_align_levels(feats, rois), "forward"),
+            ("roi_align_levels_bwd", (berr, berr),
+             lambda: lv.roi_align_levels_bwd(grad, rois, shapes),
+             lambda: lv.roi_align_levels(leaves, rois).backward(grad),
+             "forward and backward through autograd")):
+        out[label] = dict(err=e, ms=graph_ms(kernel, flush), wrapper_ms=time_ms(op, flush))
+        print(f"{label} on a train step's rois ({per} on P2..P5): kernel_ms "
+              f"{out[label]['ms']:.4f} (graph of the launch), op_ms "
+              f"{out[label]['wrapper_ms']:.4f} (the op, {what}), max rel {e[1]:.3e} (bound "
+              f"{tol:.1e})", flush=True)
+    del feats, leaves, model, detector
+    return out, launches
+
+
 def report(name, r, launches, label=None) -> None:
     wrapper = f"wrapper_ms {r['wrapper_ms']:.4f}, " if "wrapper_ms" in r else ""
     print(f"{label or name}: kernel_ms {r['ms']:.4f}, {wrapper}plain_ms {r['plain_ms']:.4f}, "
@@ -3670,6 +3894,17 @@ def report(name, r, launches, label=None) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the smoke run needs a GPU")
+    if sys.argv[1:] == ["fpn"]:
+        # the FPN pooler's phase alone: `python3 chip_smoke.py fpn`
+        print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi_line()}",
+              flush=True)
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+        fpn_path(flush)
+        rng = np.random.RandomState(0)
+        fpn_main_path([rng.randint(0, 256, (h, w, 3)).astype(np.float32)
+                       for h, w in IMAGE_SIZES[:1]], flush)
+        print(json.dumps({"ok": True, "phase": "fpn"}), flush=True)
+        return
 
     from rlobjectdetection_tpu_torch.engine.serve import build_config
     from rlobjectdetection_tpu_torch.ops import _build
@@ -3699,8 +3934,10 @@ def main() -> None:
               f"{res_stage_kernel.res_stage_info(dtype)}, roi_align_avg_bwd "
               f"{roi_align_kernel.roi_align_bwd_info(dtype)}", flush=True)
 
-    # 2b. the NMS kernel at the main path's shapes
+    # 2b. the NMS kernel at the main path's shapes, and the FPN pooler's
+    # kernels at the FPN training cell's
     nms_results = nms_path(torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
+    fpn_results = fpn_path(torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
 
     # 3. the two served detectors, one after the other (the first freed
     # before the second, so each path's peak memory is its own)
@@ -3726,6 +3963,11 @@ def main() -> None:
 
     # 5. the detector's train step, from the flagship's weights
     train_results, train_launches = train_path(det_state)
+    torch.cuda.empty_cache()
+
+    # 5b. the FPN detector's train steps and a request on the main path
+    fpn_op_results, fpn_launches = fpn_main_path(
+        images, torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
     torch.cuda.empty_cache()
 
     # 6. VGG-16's train step, from the served VGG-16's weights
@@ -3785,9 +4027,11 @@ def main() -> None:
     bwd_steady = train_results["roi_align_avg_bwd steady"]
     launches = dict(launches,
                     stem=(launches["stem"] + eval_launches["stem"] + cli_launches["stem"]
-                          + rl_cli_launches["stem"] + data_launches["stem"]),
+                          + rl_cli_launches["stem"] + data_launches["stem"]
+                          + fpn_launches["stem"]),
                     layer1=(launches["layer1"] + eval_launches["layer1"] + cli_launches["layer1"]
-                            + rl_cli_launches["layer1"] + data_launches["layer1"]),
+                            + rl_cli_launches["layer1"] + data_launches["layer1"]
+                            + fpn_launches["layer1"]),
                     roi_align_avg=(roi_launches + rl_cli_launches["roi_align_avg"]
                                    + data_launches["roi_align_avg"]),
                     res_stage=rl_launches["res_stage"] + rl_cli_launches["res_stage"],
@@ -3798,7 +4042,7 @@ def main() -> None:
                                        + data_launches["roi_align_avg_bwd"]),
                     nms_sorted_mask=sum(p["nms_sorted_mask"] for p in (
                         launches, eval_launches, vgg_launches, train_launches,
-                        vgg_train_launches, cli_launches, data_launches)))
+                        vgg_train_launches, cli_launches, data_launches, fpn_launches)))
     for phase in (dp_launches, export_launches):  # each counted in the process that ran it
         launches = {k: n + phase.get(k, 0) for k, n in launches.items()}
     sources = {"stem": ("csrc/stem.cu", "rlobjectdetection_tpu/ops/stem_pallas.py:297"),
@@ -3822,10 +4066,11 @@ def main() -> None:
     in_dp = (f"the dp phase (the CLI's {DP_IMAGES} steps over NCCL at world 1, two ranks' "
              f"steps, the RL CLI's ranks and the dry run's)")
     in_export = "the export phase's replays (one request each)"
-    where = {"stem": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli}, {in_data}, {in_dp} "
-                     f"and {in_export}",
-             "layer1": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli}, {in_data}, {in_dp} "
-                       f"and {in_export}",
+    in_fpn = f"the FPN phase's {TRAIN_STEPS} train steps and request"
+    where = {"stem": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli}, {in_data}, {in_dp}, "
+                     f"{in_fpn} and {in_export}",
+             "layer1": f"in 3 requests, {in_eval}, {in_cli}, {in_rl_cli}, {in_data}, {in_dp}, "
+                       f"{in_fpn} and {in_export}",
              "roi_align_avg": f"in 6 requests, {in_eval}, {TRAIN_STEPS} vgg16 train steps, "
                               f"{in_cli}, {in_rl_cli}, {in_data}, {in_dp} and {in_export}",
              "vgg_block1": f"in 3 vgg16 requests, {TRAIN_STEPS} vgg16 train steps, {in_dp} "
@@ -3871,6 +4116,22 @@ def main() -> None:
                         "bound_by": r["bound_by"], "library_ms": None})
         print(f"nms_sorted_mask {label}: {main_launches} launches in {calls} calls on the "
               f"main path ({where_nms[(lanes, n)]}), max_abs_err {r['err'][0]}", flush=True)
+    # the pooler's rows: launches on the main path (the FPN phase's bf16
+    # train steps and request; nothing there runs it in f32), the error the
+    # larger of the synthetic rois' and the step's
+    for label, r in fpn_results.items():
+        name = label.split()[0]
+        bf16 = label.endswith("bfloat16")
+        err = tuple(map(max, r["err"], fpn_op_results[name]["err"])) if bf16 else r["err"]
+        kernels.append({"name": label, "route": "cuda",
+                        "source": "rlobjectdetection_tpu_torch/csrc/roi_align_levels.cu",
+                        "replaces": "none (no TPU kernel; ops/roi_align_levels.py's plain "
+                                    "version)",
+                        "launches": fpn_launches[name] if bf16 else 0, "max_abs_err": err[0],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+        print(f"{label}: {fpn_launches[name] if bf16 else 0} launches on the main path "
+              f"({in_fpn}), max_abs_err {err[0]}", flush=True)
     print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

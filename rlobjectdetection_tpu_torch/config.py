@@ -236,6 +236,21 @@ LS_OVERRIDES = {"TRAIN": {"SCALES": (800,), "MAX_SIZE": 1200},
                 "TEST": {"SCALES": (800,), "MAX_SIZE": 1200}}
 
 
+# Detectron2's COCO-Detection/faster_rcnn_R_101_FPN_3x recipe for `--net
+# res101_fpn` (models/fpn.py): its RPN top-N are a level's before NMS and an
+# image's after it; 512 rois an image; weight decay on the biases too.
+NET_OVERRIDES = {
+    "res101_fpn": {
+        "TRAIN": {"RPN_PRE_NMS_TOP_N": 2000, "RPN_POST_NMS_TOP_N": 1000, "BATCH_SIZE": 512,
+                  "BG_THRESH_LO": 0.0, "WEIGHT_DECAY": 0.0001, "DOUBLE_BIAS": False,
+                  "BIAS_DECAY": True, "LEARNING_RATE": 0.02, "SCALES": (800,),
+                  "MAX_SIZE": 1333},
+        "TEST": {"RPN_PRE_NMS_TOP_N": 1000, "RPN_POST_NMS_TOP_N": 1000, "NMS": 0.5,
+                 "SCALES": (800,), "MAX_SIZE": 1333},
+    },
+}
+
+
 @dataclass(frozen=True)
 class RLConfig:
     """RL refinement workload config (/root/reference/config.py)."""

@@ -29,7 +29,7 @@ import numpy as np
 from ..config import cfg_update
 from ..data.blob import read_image_bgr
 from ..device import resolve_device
-from ..models import FasterRCNN
+from ..models import build_detector
 from .checkpoint import load_checkpoint, read_checkpoint
 from .serve import BACKBONES, Detector, build_config
 
@@ -89,8 +89,8 @@ def main(argv=None) -> dict:
         if payload.get("class_agnostic"):
             args.class_agnostic = True
         classes = tuple(payload.get("classes", VOC_CLASSES))
-    model = FasterRCNN(len(classes), BACKBONES[args.net], cfg,
-                       class_agnostic=args.class_agnostic, device=dev)
+    model = build_detector(len(classes), BACKBONES[args.net], cfg,
+                           class_agnostic=args.class_agnostic, device=dev)
     if payload is not None:
         load_checkpoint(payload, model)
     else:

@@ -120,7 +120,7 @@ def export_artifact(args) -> dict:
     """Build the detector of `args` (weights from `--load_name` or seeded
     random), export its serving function and write the artifact."""
     from ..device import resolve_device
-    from ..models import FasterRCNN
+    from ..models import build_detector
     from .checkpoint import load_checkpoint, read_checkpoint
     from .serve import BACKBONES, build_config
 
@@ -132,8 +132,8 @@ def export_artifact(args) -> dict:
 
         cfg = cfg_update(cfg, {"POOLING_MODE": payload.get("pooling_mode", cfg.POOLING_MODE)})
         args.class_agnostic = args.class_agnostic or bool(payload.get("class_agnostic"))
-    model = FasterRCNN(args.classes, BACKBONES[args.net], cfg,
-                       class_agnostic=args.class_agnostic, device=dev, seed=3)
+    model = build_detector(args.classes, BACKBONES[args.net], cfg,
+                           class_agnostic=args.class_agnostic, device=dev, seed=3)
     if payload is not None:
         load_checkpoint(payload, model)
     else:

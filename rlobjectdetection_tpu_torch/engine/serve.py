@@ -2,7 +2,7 @@
 of `tools/demo.py::_make_detector`, without the drawing and the webcam.
 
     python -m rlobjectdetection_tpu_torch.engine.serve --image_dir D \
-        [--load_npz P] [--net res101|vgg16] [--dataset coco] [--device cuda] \
+        [--load_npz P] [--net res101|res101_fpn|vgg16] [--dataset coco] [--device cuda] \
         [--set TEST.SCALES "[800]" ...]
 
 serves every image of a folder with seeded random weights, or with a
@@ -18,20 +18,21 @@ import time
 import numpy as np
 import torch
 
-from ..config import (DATASET_OVERRIDES, LS_OVERRIDES, Config, cfg_from_file, cfg_from_list,
-                      cfg_update)
+from ..config import (DATASET_OVERRIDES, LS_OVERRIDES, NET_OVERRIDES, Config, cfg_from_file,
+                      cfg_from_list, cfg_update)
 from ..data.blob import PIXEL_MEANS_BGR, pad_shape, prep_im_for_blob, read_image_bgr
 from ..data.minibatch import im_list_to_blob
 from ..device import pageable_to, resolve_device
-from ..models import FasterRCNN
+from ..models import build_detector
 from ..utils import tracing
 from .checkpoint import load_net_npz
 from .detect import postprocess_detections
 
 NUM_CLASSES = {"pascal_voc": 21, "pascal_voc_0712": 21, "coco": 81}
-# --net → FasterRCNN backbone, as tools/demo.py maps it (`tiny`: the test backbone)
+# --net → the detector's backbone, as tools/demo.py maps it (`tiny`: the test
+# backbone; `res101_fpn`: the FPN detector, `models/fpn.py`)
 BACKBONES = {"vgg16": "vgg16", "res50": "resnet50", "res101": "resnet101",
-             "res152": "resnet152", "tiny": "tiny"}
+             "res101_fpn": "resnet101_fpn", "res152": "resnet152", "tiny": "tiny"}
 
 
 class Detector:
@@ -77,17 +78,20 @@ class Detector:
                     out["rois"][0], out["cls_prob"][0], out["bbox_pred"][0], info[0],
                     out["roi_valid"][0], num_classes=self.model.num_classes,
                     class_agnostic=self.model.class_agnostic,
-                    max_per_image=self.cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=self.cfg.TEST.NMS)
+                    max_per_image=self.cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=self.cfg.TEST.NMS,
+                    score_thresh=getattr(self.model, "test_score_thresh", 0.0))
             with tracing.span("serve.d2h"):
                 return tuple(t.cpu().numpy() for t in dets)
 
 
 def build_config(dataset: str | None = None, set_cfgs=None, *, large_scale: bool = False,
-                 cfg_file: str | None = None, pooling_mode: str | None = None) -> Config:
+                 cfg_file: str | None = None, pooling_mode: str | None = None,
+                 net: str | None = None) -> Config:
     """The config of every entry point: Config() with the fused stem and
     layer1 kernels on, then in the JAX trainer's order the dataset's
     overrides (none for a name without any, such as an imdb name), `--ls`,
-    `--cfg`, `--set` and `--pooling_mode`. Layer1's kernel stays on only
+    the `--net`'s recipe (`NET_OVERRIDES`), `--cfg`, `--set` and
+    `--pooling_mode`. Layer1's kernel stays on only
     with the stem's and where RESNET.FIXED_BLOCKS >= 1: it reads the stem
     kernel's output and is forward-only. VGG-16 reads CONV1_FUSED (its
     block-1 kernel) and ignores LAYER1_FUSED."""
@@ -96,6 +100,8 @@ def build_config(dataset: str | None = None, set_cfgs=None, *, large_scale: bool
         cfg = cfg_update(cfg, DATASET_OVERRIDES[dataset])
     if large_scale:
         cfg = cfg_update(cfg, LS_OVERRIDES)
+    if net in NET_OVERRIDES:
+        cfg = cfg_update(cfg, NET_OVERRIDES[net])
     if cfg_file:
         cfg = cfg_from_file(cfg, cfg_file)
     if set_cfgs:
@@ -117,9 +123,9 @@ def main(argv=None) -> None:
     p.add_argument("--set", dest="set_cfgs", nargs="*", default=None)
     args = p.parse_args(argv)
 
-    cfg = build_config(args.dataset, args.set_cfgs)
-    model = FasterRCNN(NUM_CLASSES[args.dataset], BACKBONES[args.net], cfg,
-                       device=args.device)
+    cfg = build_config(args.dataset, args.set_cfgs, net=args.net)
+    model = build_detector(NUM_CLASSES[args.dataset], BACKBONES[args.net], cfg,
+                           device=args.device)
     if args.load_npz:
         load_net_npz(args.load_npz, model)
     else:

@@ -47,7 +47,7 @@ from ..data.loader import RoiBatchLoader, eval_bucket_plan
 from ..data.packed import PackedRoiBatchLoader, pack_timed
 from ..data.prefetch import AsyncLoader, device_prefetch, to_device
 from ..device import resolve_device
-from ..models import FasterRCNN
+from ..models import build_detector
 from .checkpoint import (checkpoint_path, load_checkpoint, load_net_npz, load_params,
                          read_checkpoint)
 from .convert_torch_weights import merge_pretrained
@@ -144,7 +144,8 @@ def postprocess_batch(model, out, info, n: int, cfg: Config) -> torch.Tensor:
             class_agnostic=model.class_agnostic,
             max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=cfg.TEST.NMS,
             bbox_reg=cfg.TEST.BBOX_REG, normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS,
-            normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS)
+            normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS,
+            score_thresh=getattr(model, "test_score_thresh", 0.0))
         rows.append(torch.cat([boxes, scores[:, None], classes[:, None].float(),
                                valid[:, None].float()], 1))
     return torch.stack(rows)
@@ -261,7 +262,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.batch < 1:
         sys.exit("--batch must be >= 1")
-    cfg = build_config(args.dataset, args.set_cfgs, large_scale=args.large_scale,
+    cfg = build_config(args.dataset, args.set_cfgs, large_scale=args.large_scale, net=args.net,
                        cfg_file=args.cfg_file)
 
     imdb_name = DATASET_MAP.get(args.dataset, args.dataset)
@@ -277,8 +278,8 @@ def main(argv=None):
         if payload.get("pooling_mode"):
             cfg = cfg_update(cfg, {"POOLING_MODE": payload["pooling_mode"]})
         print(f"load checkpoint {path} (pooling_mode {cfg.POOLING_MODE})")
-    model = FasterRCNN(imdb_obj.num_classes, BACKBONES[args.net], cfg,
-                       class_agnostic=args.class_agnostic, device=dev)
+    model = build_detector(imdb_obj.num_classes, BACKBONES[args.net], cfg,
+                           class_agnostic=args.class_agnostic, device=dev)
     if payload is not None:
         load_checkpoint(payload, model)
     elif args.weights:

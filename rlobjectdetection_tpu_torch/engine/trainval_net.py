@@ -2,7 +2,7 @@
 package's `tools/trainval_net.py`).
 
     python -m rlobjectdetection_tpu_torch.engine.trainval_net --dataset coco \
-        [--net res101|res50|res152|vgg16|tiny] [--bs N] [--epochs E] [--lr LR] \
+        [--net res101|res101_fpn|res50|res152|vgg16|tiny] [--bs N] [--epochs E] [--lr LR] \
         [--lr_decay_step K] [--save_dir D] [--s S] [--r --checkepoch k] \
         [--pretrained F] [--nw W] [--packed_input DIR] [--device cuda] \
         [--dist_coordinator HOST:PORT --dist_nprocs N --dist_rank R] \
@@ -55,7 +55,7 @@ from ..data.loader import HostShardLoader, RoiBatchLoader
 from ..data.packed import PackedRoiBatchLoader, pack_timed
 from ..data.prefetch import AsyncLoader, device_prefetch, to_device
 from ..device import resolve_device
-from ..models import FasterRCNN
+from ..models import build_detector
 from ..parallel.distributed import (GlobalBatch, add_dist_args, check_dist_args, first_on_host,
                                     host_local_batch_slice, initialize)
 from ..parallel.mesh import replicate
@@ -86,8 +86,9 @@ LOSS_KEYS = ("loss", "rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a Faster R-CNN detector")
     p.add_argument("--dataset", default="pascal_voc")
-    p.add_argument("--net", default="res101", choices=["vgg16", "res50", "res101", "res152",
-                                                      "tiny"])
+    p.add_argument("--net", default="res101", choices=["vgg16", "res50", "res101", "res101_fpn",
+                                                      "res152", "tiny"],
+                   help="res101_fpn: Faster R-CNN R101-FPN (Detectron2's COCO 3x recipe)")
     p.add_argument("--start_epoch", default=1, type=int)
     p.add_argument("--epochs", default=20, type=int)
     p.add_argument("--disp_interval", default=100, type=int)
@@ -269,7 +270,7 @@ def main(argv=None) -> dict:
 
 def _train(args, world, dev) -> dict:
     log = init_log("train")
-    cfg = build_config(args.dataset, args.set_cfgs, large_scale=args.large_scale,
+    cfg = build_config(args.dataset, args.set_cfgs, large_scale=args.large_scale, net=args.net,
                        cfg_file=args.cfg_file, pooling_mode=args.pooling_mode)
 
     imdb_name = DATASET_MAP.get(args.dataset, (args.dataset, None))[0]
@@ -291,8 +292,8 @@ def _train(args, world, dev) -> dict:
     iters_per_epoch = len(loader)
 
     backbone = BACKBONES[args.net]
-    model = FasterRCNN(imdb_obj.num_classes, backbone, cfg, class_agnostic=args.class_agnostic,
-                       device=dev, seed=cfg.RNG_SEED)
+    model = build_detector(imdb_obj.num_classes, backbone, cfg,
+                           class_agnostic=args.class_agnostic, device=dev, seed=cfg.RNG_SEED)
     if args.pretrained:
         model.load_state_dict(merge_pretrained(model.state_dict(), load_params(args.pretrained)))
     schedule = make_lr_schedule(args.lr, args.lr_decay_step * iters_per_epoch,

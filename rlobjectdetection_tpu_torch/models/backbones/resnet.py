@@ -155,11 +155,15 @@ class ResNetBase(nn.Module):
     `frozen_stages` (RESNET.FIXED_BLOCKS): conv1 and layer1..layer n for
     n = frozen_stages take no gradient. Their parameters are made
     requires_grad=False and the activation is detached after layer n, as the
-    JAX module's stop_gradient cuts it, so autograd keeps no graph there."""
+    JAX module's stop_gradient cuts it, so autograd keeps no graph there.
+
+    With `layer4` the base also holds layer4 (stride 2 on its 1×1 convs)
+    and `pyramid` gives C2..C5 of a feature pyramid: layer1..layer4's
+    outputs at strides 4, 8, 16 and 32, layer4 run on the whole map."""
 
     def __init__(self, num_layers: int = 101, dtype: torch.dtype = torch.float32,
                  conv1_fused: bool = False, layer1_fused: bool = False,
-                 stages_fused: int = 0, frozen_stages: int = 1):
+                 stages_fused: int = 0, frozen_stages: int = 1, layer4: bool = False):
         super().__init__()
         if stages_fused not in (0, 2, 3, 23):
             raise ValueError(f"stages_fused must be one of 0/2/3/23 (digit-coded), got "
@@ -175,6 +179,8 @@ class ResNetBase(nn.Module):
         self.layer1 = ResLayer(64, 64, specs[0], 1)
         self.layer2 = ResLayer(256, 128, specs[1], 2)
         self.layer3 = ResLayer(512, 256, specs[2], 2)
+        if layer4:
+            self.layer4 = ResLayer(1024, 512, specs[3], 2)
         for frozen in (self.conv1, self.layer1, self.layer2, self.layer3)[:1 + min(frozen_stages, 3)]:
             frozen.requires_grad_(False)
         self.pinned = None
@@ -223,6 +229,17 @@ class ResNetBase(nn.Module):
                                             dtype=self.dtype, **self._pinned(name)))
 
     def forward(self, x: torch.Tensor, fwd_only: bool = False) -> torch.Tensor:
+        return nchw_to_nhwc(self._stages(x, fwd_only)[-1])
+
+    def pyramid(self, x: torch.Tensor, fwd_only: bool = False) -> list:
+        """C2..C5 (layer1..layer4's outputs) as NCHW views of channels-last
+        memory; needs `layer4`."""
+        c2, c3, c4 = self._stages(x, fwd_only)
+        return [c2, c3, c4, self.layer4(c4)]
+
+    def _stages(self, x: torch.Tensor, fwd_only: bool) -> list:
+        """layer1..layer3's outputs, NCHW views of channels-last memory, each
+        cut where its stage is the last frozen one."""
         fuse = lambda n: self.frozen_stages >= n or fwd_only
         if self.conv1_fused:
             bn = self.bn1
@@ -239,10 +256,10 @@ class ResNetBase(nn.Module):
             x = nhwc_to_nchw(x.to(self.dtype))
             x = self._cut(ceil_max_pool(torch.relu(self.bn1(self.conv1(x)))), 0)
             x = self.layer1(x)
-        x = self._cut(x, 1)
-        x = self._cut(self._stage(self.layer2, x, "2" in str(self.stages_fused) and fuse(2)), 2)
-        x = self._stage(self.layer3, x, "3" in str(self.stages_fused) and fuse(3))
-        return nchw_to_nhwc(self._cut(x, 3))
+        c2 = self._cut(x, 1)
+        c3 = self._cut(self._stage(self.layer2, c2, "2" in str(self.stages_fused) and fuse(2)), 2)
+        c4 = self._stage(self.layer3, c3, "3" in str(self.stages_fused) and fuse(3))
+        return [c2, c3, self._cut(c4, 3)]
 
 
 class ResNetHead(nn.Module):

@@ -11,6 +11,8 @@ carries its backward (`rlod::roi_align_avg_bwd`, a kernel too).
 `rlod::nms_sorted_mask` is the greedy NMS of `ops/nms.py`: on a CUDA tensor
 the bitmask kernel of `csrc/nms.cu` (`ops/nms_kernel.py`), on a CPU tensor
 the op's plain body, Jacobi sweeps that wait on the host between steps.
+`rlod::roi_align_levels` is the FPN detector's multi-level RoIAlignV2
+(`ops/roi_align_levels.py`), with its backward `rlod::roi_align_levels_bwd`.
 
 Importing this module registers the ops; it imports no model code, so a
 program exported with the ops replays after `import
@@ -29,6 +31,7 @@ import torch
 
 from . import (layer1_kernel, nms_kernel, res_stage_kernel, roi_align_kernel, stem_kernel,
                vgg_block1_kernel)
+from . import roi_align_levels as levels
 from .nms import _nms_sorted_mask
 from .res_stage_kernel import blocks_of
 from .vgg_block1_kernel import VGG_KEYS
@@ -39,7 +42,9 @@ WRAPPERS = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1
             "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
             "vgg_block1": vgg_block1_kernel.fused_vgg_block1,
             "res_stage": res_stage_kernel.fused_res_stage,
-            "nms_sorted_mask": nms_kernel.launch_nms}
+            "nms_sorted_mask": nms_kernel.launch_nms,
+            "roi_align_levels": levels.roi_align_levels,
+            "roi_align_levels_bwd": levels.roi_align_levels_bwd}
 
 
 # -- the stem ------------------------------------------------------------------
@@ -157,6 +162,44 @@ def _roi_backward(ctx, grad):
 
 
 roi_align_avg.register_autograd(_roi_backward, setup_context=_roi_setup)
+
+
+# -- multi-level RoIAlignV2 (the FPN box head's pooler), forward and backward -----
+
+
+@torch.library.custom_op("rlod::roi_align_levels", mutates_args=())
+def roi_align_levels(p2: torch.Tensor, p3: torch.Tensor, p4: torch.Tensor, p5: torch.Tensor,
+                     rois: torch.Tensor) -> torch.Tensor:
+    return levels._forward(p2, p3, p4, p5, rois)
+
+
+@roi_align_levels.register_fake
+def _(p2, p3, p4, p5, rois):
+    return p2.new_empty((rois.shape[0], levels.POOLED, levels.POOLED, p2.shape[-1]))
+
+
+@torch.library.custom_op("rlod::roi_align_levels_bwd", mutates_args=())
+def roi_align_levels_bwd(grad: torch.Tensor, rois: torch.Tensor, feat_shapes: List[int]
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return levels.roi_align_levels_bwd(grad, rois, feat_shapes)
+
+
+@roi_align_levels_bwd.register_fake
+def _(grad, rois, feat_shapes):
+    return tuple(grad.new_empty(s) for s in levels._level_shapes(feat_shapes))
+
+
+def _levels_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[4])
+    ctx.feat_shapes = [int(x) for f in inputs[:4] for x in f.shape]
+
+
+def _levels_backward(ctx, grad):
+    (rois,) = ctx.saved_tensors
+    return (*roi_align_levels_bwd(grad.contiguous(), rois, ctx.feat_shapes), None)
+
+
+roi_align_levels.register_autograd(_levels_backward, setup_context=_levels_setup)
 
 
 # -- NMS -------------------------------------------------------------------------

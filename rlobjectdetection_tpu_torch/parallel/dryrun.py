@@ -55,7 +55,7 @@ from ..engine.detect import postprocess_detections
 from ..engine.optim import build_optimizer
 from ..engine.rl import make_rl_optimizer, rl_train_step
 from ..engine.train import make_train_step
-from ..models import FasterRCNN
+from ..models import build_detector
 from ..models.backbones import resnet_ties, vgg_ties
 from ..models.backbones.resnet import LAYER_SPECS
 from ..models.rl import RLPolicyNet
@@ -103,8 +103,8 @@ def _model(spec, device):
             layer1_fused=LAYER_SPECS[spec["layers"]][0] == 3, stages_fused=23, device=dev,
             seed=spec.get("seed", 3))
     else:
-        make = lambda dev: FasterRCNN(spec["num_classes"], spec["backbone"], spec["cfg"],
-                                      device=dev, seed=spec.get("seed", 3))
+        make = lambda dev: build_detector(spec["num_classes"], spec["backbone"], spec["cfg"],
+                                          device=dev, seed=spec.get("seed", 3))
     if spec.get("state") is None:
         return make(device)
     with torch.device("meta"):

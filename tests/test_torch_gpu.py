@@ -904,3 +904,80 @@ def test_nms_kernel_refuses_what_it_does_not_take(cuda):
         launch_nms(boxes, valid, 0.5, 256, -1)
     with pytest.raises(ValueError, match="contiguous"):                # through the op
         nms_mod.nms_sorted_mask(torch.rand(8, 2, 4, device=cuda).transpose(0, 1), valid, 0.5)
+
+
+# -- the FPN pooler: multi-level RoIAlignV2 (csrc/roi_align_levels.cu) ----------------
+
+# The forward sums each bin's samples in f32 in another order than the plain
+# version: in bf16 an output may round to the neighbouring bf16 value (2^-7
+# of the largest covers one step at any magnitude below it), in f32 the
+# orders differ by f32 rounding. The backward's atomics add in an order
+# that changes from launch to launch: the same bounds.
+FPN_TOLS = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _fpn_inputs(dev, dtype, seed=0):
+    """P2..P5 of the training cell (two 800×1216 blobs, 256 channels) and
+    1024 rois of sides 8..1000 pixels (every level), a few of zero width."""
+    import math
+
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn((2, h, w, 256), generator=g).to(dev, dtype)
+             for h, w in ((200, 304), (100, 152), (50, 76), (25, 38))]
+    side = torch.exp(torch.empty(1024, 2).uniform_(math.log(8.0), math.log(1000.0), generator=g))
+    ctr = torch.rand(1024, 2, generator=g) * torch.tensor([1216.0, 800.0])
+    boxes = torch.cat([ctr - side / 2, ctr + side / 2], 1)
+    boxes[:16, 2] = boxes[:16, 0]
+    rois = torch.cat([(torch.arange(1024) % 2).float()[:, None], boxes], 1).to(dev)
+    return feats, rois
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_levels_kernels_match_plain(cuda, dtype):
+    from rlobjectdetection_tpu_torch.ops import roi_align_levels as lv
+
+    feats, rois = _fpn_inputs(cuda, dtype)
+    assert set(lv.roi_levels(rois).tolist()) == {0, 1, 2, 3}
+    n0, b0 = lv.roi_align_levels.launches, lv.roi_align_levels_bwd.launches
+    got = lv._forward(*feats, rois)
+    want = lv.roi_align_levels_plain(feats, rois)
+    assert got.dtype == dtype and max_rel(got, want) <= FPN_TOLS[dtype]
+    grad = torch.randn(got.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda).to(dtype)
+    shapes = [int(x) for f in feats for x in f.shape]
+    gots = lv.roi_align_levels_bwd(grad, rois, shapes)
+    wants = lv.roi_align_levels_plain_backward(grad, rois, lv._level_shapes(shapes), dtype)
+    for a, b in zip(gots, wants):
+        assert a.dtype == dtype and a.shape == b.shape and max_rel(a, b) <= FPN_TOLS[dtype]
+    torch.cuda.synchronize()
+    assert (lv.roi_align_levels.launches, lv.roi_align_levels_bwd.launches) == (n0 + 1, b0 + 1)
+
+
+@pytest.mark.gpu
+def test_roi_align_levels_op_autograd_on_the_card(cuda):
+    """The op's autograd launches both kernels and gives the plain
+    backward's gradient."""
+    from rlobjectdetection_tpu_torch.ops import roi_align_levels as lv
+
+    feats, rois = _fpn_inputs(cuda, torch.float32, seed=2)
+    leaves = [f.requires_grad_() for f in feats]
+    out = lv.roi_align_levels(leaves, rois)
+    w = torch.randn(out.shape, device=cuda)
+    (out * w).sum().backward()
+    wants = lv.roi_align_levels_plain_backward(w, rois, [f.shape for f in feats], torch.float32)
+    for f, want in zip(leaves, wants):
+        assert max_rel(f.grad, want) <= FPN_TOLS[torch.float32]
+
+
+@pytest.mark.gpu
+def test_roi_align_levels_refuses_what_it_does_not_take(cuda):
+    from rlobjectdetection_tpu_torch.ops import roi_align_levels as lv
+
+    feats, rois = _fpn_inputs(cuda, torch.float32, seed=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        lv._forward(feats[0], feats[1], feats[2], feats[3].transpose(1, 2), rois)
+    with pytest.raises(ValueError, match="rois"):
+        lv._forward(*feats, rois.double())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        lv._forward(*[f.half() for f in feats], rois)

@@ -10,6 +10,10 @@
 - `Detector.detect` on the `tiny` backbone records the `serve.*` /
   `model.*` tree, and `train_epochs` over a tiny loader `train.step`,
   `data.next`, `data.h2d` and `data.assemble`;
+- the FPN detector's step and request record `model.fpn` (the neck),
+  `model.rpn` and `model.proposals` over all levels, and count
+  `fpn.nms_lanes` (B·5 a proposal layer) and `fpn.rois_p2` ..
+  `fpn.rois_p5` (the rois pooled from each level);
 - under `torch.profiler` every span has a `user_annotation` twin, and one
   offset maps each twin within 100 µs; under `torch.export` no span is
   recorded and no profiler op enters the graph.
@@ -30,7 +34,8 @@ from rlobjectdetection_tpu_torch.device import pageable_to
 from rlobjectdetection_tpu_torch.engine import build_optimizer, make_train_step
 from rlobjectdetection_tpu_torch.engine.serve import Detector
 from rlobjectdetection_tpu_torch.engine.trainval_net import train_epochs
-from rlobjectdetection_tpu_torch.models import FasterRCNN
+from rlobjectdetection_tpu_torch.models import FasterRCNN, build_detector
+from rlobjectdetection_tpu_torch.ops.roi_align_levels import roi_levels
 from rlobjectdetection_tpu_torch.ops import library  # noqa: F401  (registers rlod::)
 from rlobjectdetection_tpu_torch.ops.nms import nms_sorted_mask
 from rlobjectdetection_tpu_torch.utils import tracing
@@ -309,6 +314,63 @@ def test_profiler_twins_map_by_one_offset(tmp_path):
     for e, s in zip(twins, spans):
         assert abs(e["ts"] - (s["t_start"] / 1e3 + offset)) <= 100, (s["name"], e, s)
         assert abs(e["ts"] + e["dur"] - (s["t_end"] / 1e3 + offset)) <= 100, (s["name"], e, s)
+
+
+FPN_CFG = config.Config(
+    TRAIN=config.TrainConfig(RPN_PRE_NMS_TOP_N=200, RPN_POST_NMS_TOP_N=40, BATCH_SIZE=32,
+                             SCALES=(64,)),
+    TEST=config.TestConfig(RPN_PRE_NMS_TOP_N=100, RPN_POST_NMS_TOP_N=20, SCALES=(64,),
+                           MAX_DETS_PER_IMAGE=10),
+    DTYPE="float32", NMS_TILE=64)
+FPN_STEP = {"model.trunk", "model.fpn", "model.rpn", "model.proposals", "model.nms",
+            "model.anchor_target", "model.proposal_target", "model.head", "model.loss",
+            "train.backward", "train.optimizer"}
+
+
+def test_fpn_step_records_its_spans_and_level_counts():
+    model = build_detector(4, "resnet50_fpn", FPN_CFG, device="cpu", seed=3)
+    opt, sched, _ = build_optimizer(model, "resnet50_fpn", 0.001)
+    batch = {k: torch.from_numpy(v) for k, v in _Loader(1).assemble_job((1, 0)).items()}
+    tracing.enable()
+    make_train_step(model, opt, sched)(batch, torch.Generator().manual_seed(4))
+    out_rois = []
+    head = model._scores
+    model._scores = lambda feats, rois: (out_rois.append(rois), head(feats, rois))[1]
+    make_train_step(model, opt, sched)(batch, torch.Generator().manual_seed(5))
+    spans = tracing.spans()
+    ids = _by_id(spans)
+    steps = [s for s in spans if s["name"] == "train.step"]
+    assert len(steps) == 2
+    for st in steps:
+        mine = [s for s in spans if s["root"] == st["id"] and s is not st]
+        assert {s["name"] for s in mine} == FPN_STEP
+        assert {ids[s["parent"]]["name"] for s in mine if s["name"] == "model.fpn"} == {
+            "train.step"}
+        props = [s for s in mine if s["name"] == "model.proposals"]
+        assert len(props) == 1 and props[0]["counts"]["fpn.nms_lanes"] == 2 * 5
+        heads = [s for s in mine if s["name"] == "model.head"]
+        assert len(heads) == 1
+        assert sum(heads[0]["counts"].get(f"fpn.rois_p{k}", 0) for k in range(2, 6)) == 2 * 32
+    per = torch.bincount(roi_levels(out_rois[0].reshape(-1, 5)), minlength=4).tolist()
+    last = [s for s in spans if s["name"] == "model.head"][-1]["counts"]
+    assert [last.get(f"fpn.rois_p{k}", 0) for k in range(2, 6)] == per
+    assert tracing.totals()["fpn.nms_lanes"] == 2 * 2 * 5
+
+
+def test_fpn_request_records_the_neck_under_the_request():
+    model = build_detector(4, "resnet50_fpn", FPN_CFG, device="cpu", seed=3)
+    det = Detector(model, FPN_CFG, "cpu")
+    tracing.enable()
+    det.detect(_image(2, (60, 80, 3)))
+    spans = tracing.spans()
+    ids = _by_id(spans)
+    (req,) = [s for s in spans if s["name"] == "serve.request"]
+    mine = {s["name"]: ids[s["parent"]]["name"] for s in spans if s["root"] == req["id"]
+            and s is not req and s["name"] != "model.nms"}
+    assert mine == {**SERVE_TREE, "model.fpn": "serve.request"}
+    (head,) = [s for s in spans if s["name"] == "model.head"]
+    assert sum(head["counts"][f"fpn.rois_p{k}"] for k in range(2, 6)
+               if f"fpn.rois_p{k}" in head["counts"]) == 20
 
 
 class _Spanned(torch.nn.Module):
