@@ -25,6 +25,14 @@ steps at batch 2 on 800×1216 and one served request, each kernel's launches
 counted from 0 and checked; the op against the plain versions on the rois a
 step pooled); the pooler's rows in the kernels line take their launches
 from there. `python3 chip_smoke.py fpn` runs those two phases alone.
+Then the frozen-BN epilogue kernel (`csrc/frozen_bn_act.cu`, the ops
+`rlod::frozen_bn_act` and `_bwd`) at layer3's bn3 + identity residual,
+[2,1024,50,76] bf16 (`frozen_bn_path`): forward and backward against the
+modules' ATen chain to the bit, the kernels, the site as the model calls
+it, the chain and the byte bound timed; its rows in the kernels line take
+their launches from the flagship's requests and train steps and the FPN
+phase, where every one of a forward's 90 sites launches it once each way
+and none is left to the modules (`frozen_bn_main_path`).
 Then, for each of the two served
 detectors (81 COCO classes, 800×1216, bf16 compute, seeded random weights)
 behind `Detector`:
@@ -513,6 +521,38 @@ def serve_requests(label: str, detector, images, counters: dict) -> dict:
 NMS_MAIN_PATH: dict = {}
 
 
+# A ResNet-101 forward's frozen-BN sites outside the stem's and layer1's
+# kernels: three a bottleneck of layer2 (4 blocks), layer3 (23) and layer4
+# (3), the C4 head's or the FPN trunk's.
+BN_ACT_SITES = 3 * (4 + 23 + 3)
+# The frozen-BN kernel's launches on the main path (the flagship's requests
+# and train steps, the FPN detector's), for the kernels line's rows.
+FROZEN_BN_MAIN_PATH = {"frozen_bn_act": 0, "frozen_bn_act_bwd": 0}
+
+
+def frozen_bn_plain_calls() -> int:
+    from rlobjectdetection_tpu_torch.utils import tracing
+
+    return tracing.totals().get("frozen_bn.plain_calls", 0)
+
+
+def frozen_bn_main_path(label: str, launches: dict, forwards: int, backwards: int,
+                        plain) -> None:
+    """Check that `forwards` ResNet-101 forwards, `backwards` of them
+    differentiated, launched the frozen-BN kernel once at every site each
+    way and (where `plain` holds `frozen_bn.plain_calls` from before) left no
+    site to the modules; add the launches to FROZEN_BN_MAIN_PATH."""
+    want = {"frozen_bn_act": BN_ACT_SITES * forwards,
+            "frozen_bn_act_bwd": BN_ACT_SITES * backwards}
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"{label}: frozen-BN kernel launches {got}, expected {want}")
+    if plain is not None:
+        left = frozen_bn_plain_calls() - plain
+        check(left == 0, f"{label}: {left} frozen-BN sites left to the modules")
+    for k, n in got.items():
+        FROZEN_BN_MAIN_PATH[k] += n
+
+
 @contextlib.contextmanager
 def nms_by_shape():
     """Yields {(lanes, N): [calls, launches]} of the NMS kernel while inside
@@ -630,17 +670,23 @@ def roi_align_check(label, base_feat, rois, flush, bf16_plain_tol) -> dict:
 @contextlib.contextmanager
 def plain_modules(base):
     """The backbone without its kernels: the plain stem (and so the plain
-    layer1) and plain stages; restored after."""
-    saved = base.conv1_fused, getattr(base, "stages_fused", 0)
+    layer1), plain stages, and every bottleneck's frozen BN, residual and
+    ReLU as the modules' chain (the head's too); restored after."""
+    from rlobjectdetection_tpu_torch.models.backbones import resnet
+    from rlobjectdetection_tpu_torch.ops.frozen_bn_act import frozen_bn_act_modules
+
+    saved = base.conv1_fused, getattr(base, "stages_fused", 0), resnet.frozen_bn_act
     base.conv1_fused = False
     if hasattr(base, "stages_fused"):
         base.stages_fused = 0
+    resnet.frozen_bn_act = frozen_bn_act_modules
     try:
         yield
     finally:
         base.conv1_fused = saved[0]
         if hasattr(base, "stages_fused"):
             base.stages_fused = saved[1]
+        resnet.frozen_bn_act = saved[2]
 
 
 def kernels_vs_plain(label, fn, holders, tols) -> None:
@@ -713,6 +759,7 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     from rlobjectdetection_tpu_torch.models.backbones.resnet import nhwc_to_nchw
     from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
                                                  stem_kernel)
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
     from rlobjectdetection_tpu_torch.ops.bn_fold import bn_mul_add
 
     dev = torch.device("cuda")
@@ -727,9 +774,12 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     detector = Detector(model, cfg, dev)
     counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
                 "roi_align_avg": roi_align_kernel.roi_align_avg,
-                "nms_sorted_mask": nms_kernel.launch_nms}
+                "nms_sorted_mask": nms_kernel.launch_nms,
+                "frozen_bn_act": fba.launch_frozen_bn_act}
+    plain = frozen_bn_plain_calls()
     with nms_by_shape() as nms_calls:
         launches = serve_requests("main", detector, images, counters)
+    frozen_bn_main_path("main requests", launches, len(images), 0, plain)
     # a request: the RPN's NMS (6000 boxes, two launches), the per-class NMS
     # (80 classes of 300 rois, one launch)
     want = {(1, 6000): [len(images), 2 * len(images)], (80, 300): [len(images), len(images)]}
@@ -1923,6 +1973,7 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.models import FasterRCNN
     from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
                                                  stem_kernel)
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
 
     dev = torch.device("cuda")
     cfg = build_config("coco", ["DTYPE", "bfloat16"])
@@ -1938,7 +1989,9 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
                 "roi_align_avg": roi_align_kernel.roi_align_avg,
                 "roi_align_avg_bwd": roi_align_kernel.roi_align_avg_bwd,
-                "nms_sorted_mask": nms_kernel.launch_nms}
+                "nms_sorted_mask": nms_kernel.launch_nms,
+                "frozen_bn_act": fba.launch_frozen_bn_act,
+                "frozen_bn_act_bwd": fba.launch_frozen_bn_act_bwd}
     opt, sched, labels = build_optimizer(model, "resnet101", base_lr=0.01)
     step = make_train_step(model, opt, sched)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1952,6 +2005,7 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
         f.launches = 0
+    plain = frozen_bn_plain_calls()
     step_ms, losses = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1976,6 +2030,7 @@ def train_path(det_state: dict) -> tuple[dict, dict]:
           f"{[round(v, 3) for v in step_ms]}, peak memory {peak} bytes, launches {launches}",
           flush=True)
     check(all(launches.values()), f"train: a kernel of the path was not launched: {launches}")
+    frozen_bn_main_path("train steps", launches, TRAIN_STEPS, TRAIN_STEPS, plain)
     frozen_moved = [k for k, v in model.state_dict().items()
                     if labels.get(k, "frozen") == "frozen" and not torch.equal(v, state0[k])]
     check(not frozen_moved, f"train: frozen tensors changed: {frozen_moved[:4]}")
@@ -3382,11 +3437,12 @@ def export_path(det_state: dict, vgg_state: dict, images) -> dict:
     try:
         for label, backbone, state, extra, kernels in (
                 ("flagship", "resnet101", det_state, [],
-                 ("stem", "layer1", "roi_align_avg", "nms_sorted_mask")),
+                 ("stem", "layer1", "roi_align_avg", "nms_sorted_mask", "frozen_bn_act")),
                 ("vgg16", "vgg16", vgg_state, [],
                  ("vgg_block1", "roi_align_avg", "nms_sorted_mask")),
                 ("flagship STAGE_FUSED=23", "resnet101", det_state, ["STAGE_FUSED", "23"],
-                 ("stem", "layer1", "res_stage", "roi_align_avg", "nms_sorted_mask"))):
+                 ("stem", "layer1", "res_stage", "roi_align_avg", "nms_sorted_mask",
+                  "frozen_bn_act"))):
             t0 = time.perf_counter()
             cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16", *extra])
             model = FasterRCNN(NUM_CLASSES, backbone, cfg, device=dev, seed=3)
@@ -3762,6 +3818,7 @@ def fpn_main_path(images, flush) -> tuple[dict, dict]:
     from rlobjectdetection_tpu_torch.models import build_detector
     from rlobjectdetection_tpu_torch.models.backbones.resnet import nchw_to_nhwc
     from rlobjectdetection_tpu_torch.ops import layer1_kernel, nms_kernel, stem_kernel
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
     from rlobjectdetection_tpu_torch.ops import roi_align_levels as lv
 
     dev = torch.device("cuda")
@@ -3776,7 +3833,9 @@ def fpn_main_path(images, flush) -> tuple[dict, dict]:
     counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
                 "roi_align_levels": lv.roi_align_levels,
                 "roi_align_levels_bwd": lv.roi_align_levels_bwd,
-                "nms_sorted_mask": nms_kernel.launch_nms}
+                "nms_sorted_mask": nms_kernel.launch_nms,
+                "frozen_bn_act": fba.launch_frozen_bn_act,
+                "frozen_bn_act_bwd": fba.launch_frozen_bn_act_bwd}
     # the recipe's linear warm-up (factor 0.001 over 1000 steps): at 0.02
     # from the first step the random net's losses leave the finite range
     opt, sched, _ = build_optimizer(
@@ -3798,6 +3857,7 @@ def fpn_main_path(images, flush) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     for f in counters.values():
         f.launches = 0
+    plain = frozen_bn_plain_calls()
     step_ms = []
     for i in range(TRAIN_STEPS):
         before = {k: f.launches for k, f in counters.items()}
@@ -3814,6 +3874,7 @@ def fpn_main_path(images, flush) -> tuple[dict, dict]:
         check(all(moved.values()) and moved["roi_align_levels"] == 1
               and moved["roi_align_levels_bwd"] == 1,
               f"fpn train step {i}: kernel launches {moved}, the pooler's expected once each")
+        frozen_bn_main_path(f"fpn train step {i}", moved, 1, 1, None)
         check(np.isfinite(loss), f"fpn train step {i}: loss {loss}")
         print(f"fpn train step {i}: {step_ms[-1]:.2f} ms, loss {loss:.5f}, launches {moved}",
               flush=True)
@@ -3836,9 +3897,12 @@ def fpn_main_path(images, flush) -> tuple[dict, dict]:
           f"fpn request: boxes {boxes.shape}")
     check(nms_calls.get((5, 1000)) == [1, 2], f"fpn request: NMS kernel calls by shape "
                                               f"{nms_calls}, expected one of [5, 1000]")
-    check(all(v for k, v in moved.items() if k != "roi_align_levels_bwd")
+    check(all(v for k, v in moved.items() if not k.endswith("_bwd"))
           and moved["roi_align_levels"] == 1 and moved["roi_align_levels_bwd"] == 0,
           f"fpn request: kernel launches {moved}")
+    frozen_bn_main_path("fpn request", moved, 1, 0, None)
+    check(frozen_bn_plain_calls() == plain, f"fpn: frozen-BN sites left to the modules: "
+                                            f"{frozen_bn_plain_calls() - plain}")
     launches = {k: f.launches for k, f in counters.items()}
     print(f"fpn path: {TRAIN_STEPS} train steps at batch {TRAIN_BATCH} x {BLOB_SHAPE[1]}x"
           f"{BLOB_SHAPE[2]}, step ms {[round(v, 3) for v in step_ms]}, peak memory {peak} "
@@ -3880,6 +3944,104 @@ def fpn_main_path(images, flush) -> tuple[dict, dict]:
               f"{tol:.1e})", flush=True)
     del feats, leaves, model, detector
     return out, launches
+
+
+# layer3's bn3 and identity residual at an 800×1216 blob, batch 2 (NCHW)
+FROZEN_BN_SHAPE = (2, 1024, 50, 76)
+# input sets the frozen-BN timings cycle through, each launch on the next:
+# 6 × 62 MB (backward) lies far past the 50 MB L2, so every launch finds its
+# inputs cold without a flush, whose dirty lines the launch would otherwise
+# write back (50 MB against the forward's own 47 MB)
+FROZEN_BN_SETS = 6
+
+
+def kernel_device_ms(fn, symbol: str, calls: int) -> float:
+    """The median device duration (ms) of the kernels whose name holds
+    `symbol` over `calls` calls of fn(), read from `torch.profiler`: the
+    kernel's own time, without the launch gaps between graph nodes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    durs = sorted(e.device_time for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.name)
+    check(len(durs) >= calls, f"the profiler saw {len(durs)} launches of {symbol}, not {calls}")
+    return durs[len(durs) // 2] / 1e3
+
+
+def frozen_bn_path() -> dict:
+    """The frozen-BN epilogue kernel (`csrc/frozen_bn_act.cu`) at layer3's
+    bn3 + identity residual, FROZEN_BN_SHAPE in bf16: forward and backward
+    (g_x and g_r) against the modules' ATen chain and autograd on it, to the
+    bit; times over FROZEN_BN_SETS input sets in turn, a launch a set: a
+    CUDA graph of the launches (`ms`, its events, gaps between launches
+    included, the yardstick of the other rows), the kernel's device
+    duration (`kernel_device_ms`, from the profiler, without those gaps),
+    the site as the model calls it (op, cached constants), the ATen chain
+    (the forward with its constants rebuilt, as the modules run it; the
+    backward's threshold_backward and multiply); and the bound (bytes: x,
+    r, y forward; g, y, g_x, g_r backward). Returns {name: result}."""
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import FrozenBatchNorm
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    n, c, h, w = FROZEN_BN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(13)
+    holder = torch.nn.Module()
+    holder.bn = bn = FrozenBatchNorm(c).to(dev)
+    randomize_frozen_bn(holder, 13)
+    mul, add = fba.bn_constants(bn, bf16)
+    sets = []
+    for _ in range(FROZEN_BN_SETS):
+        x, r, grad = (torch.randn((n, h, w, c), generator=g, device=dev).to(bf16)
+                      .permute(0, 3, 1, 2) for _ in range(3))
+        sets.append((x, r, grad, fba.launch_frozen_bn_act(x, mul, add, r)))
+    x, r, grad, y = sets[0]
+    gx, gr = fba.launch_frozen_bn_act_bwd(grad, y, mul, None, True)
+    xs, rs = x.detach().requires_grad_(True), r.detach().requires_grad_(True)
+    want = fba.frozen_bn_act_modules(xs, bn, rs)
+    want.backward(grad)
+    check(torch.equal(y, want) and torch.equal(gx, xs.grad) and torch.equal(gr, rs.grad),
+          "frozen_bn_act: the kernels' forward or backward leaves the modules' chain")
+    del xs, rs, want
+    turn = iter(range(10**9))
+    on_next = lambda fn: (lambda: fn(*sets[next(turn) % FROZEN_BN_SETS]))
+    no_flush = torch.empty(1, device=dev)
+    over_sets = lambda fn: time_ms(lambda: [fn(*st) for st in sets], no_flush) / FROZEN_BN_SETS
+    out = {}
+    for name, kernel, site, plain, tensors in (
+            ("frozen_bn_act_fwd", lambda x, r, grad, y: fba.launch_frozen_bn_act(x, mul, add, r),
+             lambda x, r, grad, y: fba.frozen_bn_act(x, bn, r),
+             lambda x, r, grad, y: fba.frozen_bn_act_modules(x, bn, r), (x, r, y)),
+            ("frozen_bn_act_bwd",
+             lambda x, r, grad, y: fba.launch_frozen_bn_act_bwd(grad, y, mul, None, True), None,
+             lambda x, r, grad, y: fba.frozen_bn_act_plain_bwd(grad, y, mul, None, True),
+             (grad, y, gx, gr))):
+        b_ms, b_by = bound(nbytes(*tensors), 0.0, BF16_TENSOR_FLOPS)
+        with torch.no_grad():
+            res = dict(err=(0.0, 0.0),
+                       ms=graph_ms(on_next(kernel), no_flush, launches=FROZEN_BN_SETS),
+                       kernel_device_ms=kernel_device_ms(on_next(kernel), f"{name}_kernel",
+                                                         5 * FROZEN_BN_SETS),
+                       plain_ms=over_sets(plain), library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            if site is not None:
+                res["wrapper_ms"] = over_sets(site)
+        name = name.removesuffix("_fwd")
+        out[name] = res
+        print(f"{name} {list(FROZEN_BN_SHAPE)} bf16 (bn3 + identity residual): kernel_ms "
+              f"{res['ms']:.4f} (a graph of the launches; the kernel's device duration "
+              f"{res['kernel_device_ms']:.4f}), "
+              + (f"site_ms {res['wrapper_ms']:.4f} (the op as the model calls it), "
+                 if site is not None else "")
+              + f"plain_ms {res['plain_ms']:.4f} (the ATen chain), bound_ms {b_ms:.4f} ({b_by}), "
+              f"{100 * b_ms / res['ms']:.1f}% of the bound in the graph, "
+              f"{100 * b_ms / res['kernel_device_ms']:.1f}% in the device duration; equal to "
+              f"the chain to the bit", flush=True)
+    return out
 
 
 def report(name, r, launches, label=None) -> None:
@@ -3938,6 +4100,7 @@ def main() -> None:
     # kernels at the FPN training cell's
     nms_results = nms_path(torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
     fpn_results = fpn_path(torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
+    bn_act_results = frozen_bn_path()
 
     # 3. the two served detectors, one after the other (the first freed
     # before the second, so each path's peak memory is its own)
@@ -4132,6 +4295,20 @@ def main() -> None:
                         "bound_by": r["bound_by"], "library_ms": None})
         print(f"{label}: {fpn_launches[name] if bf16 else 0} launches on the main path "
               f"({in_fpn}), max_abs_err {err[0]}", flush=True)
+    # the frozen-BN epilogue's rows: launches on the main path (the flagship's
+    # requests and train steps, the FPN phase's steps and request)
+    in_bn = (f"3 flagship requests, {TRAIN_STEPS} resnet101 train steps and {in_fpn}, "
+             f"{BN_ACT_SITES} sites a forward")
+    for name, r in bn_act_results.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "rlobjectdetection_tpu_torch/csrc/frozen_bn_act.cu",
+                        "replaces": "none (XLA fuses it into the conv in JAX; ATen's "
+                                    "elementwise chain in the port before)",
+                        "launches": FROZEN_BN_MAIN_PATH[name], "max_abs_err": r["err"][0],
+                        "ms": r["ms"], "kernel_device_ms": r["kernel_device_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+        report(name, r, f"{FROZEN_BN_MAIN_PATH[name]} in {in_bn}")
     print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

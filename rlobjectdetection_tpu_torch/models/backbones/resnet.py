@@ -8,7 +8,11 @@
   * the max-pool is 3×3/2, padding 0, ceil mode;
   * BatchNorm is frozen: `FrozenBatchNorm` holds scale/bias/mean/var as
     buffers and applies x*mul + add, mul/add computed in f32 then cast to
-    the compute dtype, as the JAX module does.
+    the compute dtype, as the JAX module does. A bottleneck's BN, its
+    residual and its ReLU are one call, `ops/frozen_bn_act.py::
+    frozen_bn_act` (on the card one pass of `csrc/frozen_bn_act.cu`, the
+    same bits as the modules' chain); a bottleneck built with a trainable
+    affine calls the modules' chain instead (`trainable_bn_act`).
 
 Public tensors are NHWC like the JAX package's. Inside, convs take NCHW
 views of NHWC memory (PyTorch's channels-last format), so no layout copy is
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.frozen_bn_act import frozen_bn_act, trainable_bn_act
 from ...ops.layer1_kernel import fused_layer1, packed_layer1
 from ...ops.pack_cache import PinnedPacks
 from ...ops.res_stage_kernel import fused_res_stage, packed_res_stage
@@ -90,10 +95,15 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x):
+    def affine(self, dtype: torch.dtype):
+        """(mul, add) `[C]` in `dtype`, computed in f32."""
         inv = torch.rsqrt(self.var + self.eps)
-        mul = (self.scale * inv).to(x.dtype)
-        add = (self.bias - self.mean * self.scale * inv).to(x.dtype)
+        mul = (self.scale * inv).to(dtype)
+        add = (self.bias - self.mean * self.scale * inv).to(dtype)
+        return mul, add
+
+    def forward(self, x):
+        mul, add = self.affine(x.dtype)
         return x * mul[:, None, None] + add[:, None, None]
 
 
@@ -119,13 +129,16 @@ class Bottleneck(nn.Module):
         if downsample:
             self.downsample_conv = conv(inplanes, planes * 4, 1, stride)
             self.downsample_bn = bn(planes * 4)
+        self.bn_affine_trainable = bn_affine_trainable
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        sc = self.downsample_bn(self.downsample_conv(x)) if self.downsample else x
-        return torch.relu(out + sc)
+        act = trainable_bn_act if self.bn_affine_trainable else frozen_bn_act
+        out = act(self.conv1(x), self.bn1)
+        out = act(self.conv2(out), self.bn2)
+        out = self.conv3(out)
+        if self.downsample:
+            return act(out, self.bn3, self.downsample_conv(x), self.downsample_bn)
+        return act(out, self.bn3, x)
 
 
 class ResLayer(nn.Module):
@@ -254,7 +267,7 @@ class ResNetBase(nn.Module):
                 x = self.layer1(x)
         else:
             x = nhwc_to_nchw(x.to(self.dtype))
-            x = self._cut(ceil_max_pool(torch.relu(self.bn1(self.conv1(x)))), 0)
+            x = self._cut(ceil_max_pool(frozen_bn_act(self.conv1(x), self.bn1)), 0)
             x = self.layer1(x)
         c2 = self._cut(x, 1)
         c3 = self._cut(self._stage(self.layer2, c2, "2" in str(self.stages_fused) and fuse(2)), 2)

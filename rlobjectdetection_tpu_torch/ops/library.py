@@ -13,6 +13,10 @@ the bitmask kernel of `csrc/nms.cu` (`ops/nms_kernel.py`), on a CPU tensor
 the op's plain body, Jacobi sweeps that wait on the host between steps.
 `rlod::roi_align_levels` is the FPN detector's multi-level RoIAlignV2
 (`ops/roi_align_levels.py`), with its backward `rlod::roi_align_levels_bwd`.
+`rlod::frozen_bn_act` is a ResNet bottleneck's frozen-BN epilogue (the BN
+affine, the residual and the ReLU; `ops/frozen_bn_act.py`), with its
+backward `rlod::frozen_bn_act_bwd`: on a CUDA tensor the kernels of
+`csrc/frozen_bn_act.cu`, on a CPU tensor the modules' arithmetic.
 
 Importing this module registers the ops; it imports no model code, so a
 program exported with the ops replays after `import
@@ -31,6 +35,7 @@ import torch
 
 from . import (layer1_kernel, nms_kernel, res_stage_kernel, roi_align_kernel, stem_kernel,
                vgg_block1_kernel)
+from . import frozen_bn_act as fba
 from . import roi_align_levels as levels
 from .nms import _nms_sorted_mask
 from .res_stage_kernel import blocks_of
@@ -44,7 +49,9 @@ WRAPPERS = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1
             "res_stage": res_stage_kernel.fused_res_stage,
             "nms_sorted_mask": nms_kernel.launch_nms,
             "roi_align_levels": levels.roi_align_levels,
-            "roi_align_levels_bwd": levels.roi_align_levels_bwd}
+            "roi_align_levels_bwd": levels.roi_align_levels_bwd,
+            "frozen_bn_act": fba.launch_frozen_bn_act,
+            "frozen_bn_act_bwd": fba.launch_frozen_bn_act_bwd}
 
 
 # -- the stem ------------------------------------------------------------------
@@ -200,6 +207,59 @@ def _levels_backward(ctx, grad):
 
 
 roi_align_levels.register_autograd(_levels_backward, setup_context=_levels_setup)
+
+
+# -- the frozen BN's epilogue in a bottleneck, forward and backward ----------------
+
+
+@torch.library.custom_op("rlod::frozen_bn_act", mutates_args=(), device_types="cpu")
+def frozen_bn_act(x: torch.Tensor, mul: torch.Tensor, add: torch.Tensor,
+                  r: Optional[torch.Tensor], mul_r: Optional[torch.Tensor],
+                  add_r: Optional[torch.Tensor]) -> torch.Tensor:
+    return fba.frozen_bn_act_plain(x, mul, add, r, mul_r, add_r)
+
+
+@frozen_bn_act.register_kernel("cuda")
+def _(x, mul, add, r, mul_r, add_r):
+    return fba.launch_frozen_bn_act(x, mul, add, r, mul_r, add_r)
+
+
+@frozen_bn_act.register_fake
+def _(x, mul, add, r, mul_r, add_r):
+    return torch.empty_like(x, memory_format=torch.channels_last)
+
+
+@torch.library.custom_op("rlod::frozen_bn_act_bwd", mutates_args=(), device_types="cpu")
+def frozen_bn_act_bwd(g: torch.Tensor, y: torch.Tensor, mul: torch.Tensor,
+                      mul_r: Optional[torch.Tensor], residual: bool) -> List[torch.Tensor]:
+    return fba.frozen_bn_act_plain_bwd(g, y, mul, mul_r, residual)
+
+
+@frozen_bn_act_bwd.register_kernel("cuda")
+def _(g, y, mul, mul_r, residual):
+    return fba.launch_frozen_bn_act_bwd(g, y, mul, mul_r, residual)
+
+
+@frozen_bn_act_bwd.register_fake
+def _(g, y, mul, mul_r, residual):
+    return [torch.empty_like(y, memory_format=torch.channels_last)
+            for _ in range(2 if residual else 1)]
+
+
+def _bn_act_setup(ctx, inputs, output):
+    _, mul, _, r, mul_r, _ = inputs
+    ctx.save_for_backward(output, mul, mul_r)
+    ctx.residual = r is not None
+
+
+def _bn_act_backward(ctx, grad):
+    y, mul, mul_r = ctx.saved_tensors
+    want_r = ctx.residual and ctx.needs_input_grad[3]
+    grads = frozen_bn_act_bwd(grad, y, mul, mul_r, want_r)
+    return grads[0], None, None, grads[1] if want_r else None, None, None
+
+
+frozen_bn_act.register_autograd(_bn_act_backward, setup_context=_bn_act_setup)
 
 
 # -- NMS -------------------------------------------------------------------------

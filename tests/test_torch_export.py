@@ -75,7 +75,7 @@ def _assert_equal(got, want):
 @pytest.mark.parametrize("backbone,cfg_kw,ops", [
     ("tiny", {}, {"roi_align_avg", "nms_sorted_mask"}),
     ("resnet50", dict(CONV1_FUSED=True, LAYER1_FUSED=True, STAGE_FUSED=23),
-     {"stem", "layer1", "res_stage", "roi_align_avg", "nms_sorted_mask"}),
+     {"stem", "layer1", "res_stage", "roi_align_avg", "nms_sorted_mask", "frozen_bn_act"}),
 ])
 def test_replay_equals_the_live_serving_function(backbone, cfg_kw, ops, tmp_path):
     serving = _serving(backbone, **cfg_kw)

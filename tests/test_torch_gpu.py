@@ -981,3 +981,179 @@ def test_roi_align_levels_refuses_what_it_does_not_take(cuda):
         lv._forward(*feats, rois.double())
     with pytest.raises(ValueError, match="f32 or bf16"):
         lv._forward(*[f.half() for f in feats], rois)
+
+
+# -- the frozen BN's epilogue (`rlod::frozen_bn_act`, `csrc/frozen_bn_act.cu`) ----------
+
+# (label, N, planes, H, W): the sites' maps at the main path's widths, with
+# row counts (N·H·W) that are no multiple of a CTA's rows or of a grid's
+BN_ACT_SHAPES = [("layer2", 2, 128, 99, 151), ("layer3", 2, 256, 49, 77),
+                 ("c4_head_layer4", 299, 512, 4, 4), ("fpn_layer4", 2, 512, 25, 39)]
+
+
+def _bn_act_site(dev, dtype, form, n, planes, h, w, seed=0):
+    """(x, bn, r, bn_r) of a site of `form` on the card: bn1/bn2 ("relu")
+    at `planes` channels, bn3 at 4·planes; maps NCHW views of NHWC memory."""
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import FrozenBatchNorm
+
+    c = planes if form == "relu" else 4 * planes
+    g = torch.Generator().manual_seed(seed)
+
+    def bn():
+        m = FrozenBatchNorm(c)
+        with torch.no_grad():
+            m.scale.copy_(torch.rand(c, generator=g) + 0.5)
+            m.bias.copy_(torch.randn(c, generator=g) * 0.3)
+            m.mean.copy_(torch.randn(c, generator=g) * 0.3)
+            m.var.copy_(torch.rand(c, generator=g) + 0.3)
+        return m.to(dev)
+
+    x = lambda: torch.randn((n, h, w, c), generator=g).to(dev, dtype).permute(0, 3, 1, 2)
+    return (x(), bn(), None if form == "relu" else x(),
+            bn() if form == "downsample" else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["relu", "identity", "downsample"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,n,planes,h,w", BN_ACT_SHAPES)
+def test_frozen_bn_act_kernel_equals_the_plain_path(cuda, label, n, planes, h, w, dtype, form):
+    """Forward and backward of the kernel against the modules' chain and
+    autograd on it, to the bit."""
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
+
+    x, bn, r, bn_r = _bn_act_site(cuda, dtype, form, n, planes, h, w)
+    grad = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda).to(dtype)
+
+    def run(fn):
+        xs = x.detach().requires_grad_(True)
+        rs = None if r is None else r.detach().requires_grad_(True)
+        y = fn(xs, bn, rs, bn_r)
+        y.backward(grad)
+        return [y.detach(), xs.grad] + ([] if rs is None else [rs.grad])
+
+    f0, b0 = fba.launch_frozen_bn_act.launches, fba.launch_frozen_bn_act_bwd.launches
+    got = run(fba.frozen_bn_act)
+    torch.cuda.synchronize()
+    assert (fba.launch_frozen_bn_act.launches, fba.launch_frozen_bn_act_bwd.launches) == (
+        f0 + 1, b0 + 1)
+    want = run(fba.frozen_bn_act_modules)
+    assert got[0].is_contiguous(memory_format=torch.channels_last)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+    # the op's plain body on the card gives the same bits as well
+    mul, add = fba.bn_constants(bn, dtype)
+    mul_r, add_r = (None, None) if bn_r is None else fba.bn_constants(bn_r, dtype)
+    assert torch.equal(fba.frozen_bn_act_plain(x, mul, add, r, mul_r, add_r), got[0])
+
+
+@pytest.mark.gpu
+def test_frozen_bn_act_takes_any_layout_and_refuses_what_it_cannot_run(cuda):
+    """An NCHW-contiguous map is copied to channels-last and launched; a
+    dtype or C the kernel does not take raises, as the other ops do."""
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
+    from rlobjectdetection_tpu_torch.utils import tracing
+
+    x, bn, r, _ = _bn_act_site(cuda, torch.bfloat16, "identity", 2, 64, 20, 24)
+    want = fba.frozen_bn_act_modules(x, bn, r)
+    x = x.contiguous()                                  # NCHW-contiguous
+    totals = lambda: [tracing.totals().get(k, 0) for k in ("frozen_bn.plain_calls",
+                                                           "frozen_bn.kernel_calls")]
+    plain, kernel = totals()
+    n0 = fba.launch_frozen_bn_act.launches
+    y = fba.frozen_bn_act(x, bn, r)
+    assert totals() == [plain, kernel + 1] and fba.launch_frozen_bn_act.launches == n0 + 1
+    assert y.is_contiguous(memory_format=torch.channels_last) and torch.equal(y, want)
+    with pytest.raises(ValueError, match="16-byte"):
+        fba.frozen_bn_act(x[:, :60], bn, r[:, :60])
+    with pytest.raises(ValueError, match="f32/bf16"):
+        fba.frozen_bn_act(x.half(), bn, r.half())
+    assert fba.launch_frozen_bn_act.launches == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet_with_the_frozen_bn_kernel_equals_the_plain_modules(cuda, dtype, monkeypatch):
+    """A ResNet-50 base (stem and layer1 kernels, layer2-3 trained) and C4
+    head, forward and backward: with the frozen-BN kernel at every
+    bottleneck site, and with the modules' chain, the same bits (cuDNN
+    deterministic)."""
+    from rlobjectdetection_tpu_torch.models.backbones import resnet
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import ResNetBase, ResNetHead
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
+    from rlobjectdetection_tpu_torch.utils import tracing
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    torch.manual_seed(0)
+    base = ResNetBase(50, dtype, conv1_fused=True, layer1_fused=True, frozen_stages=1)
+    head = ResNetHead(50)
+    rng = np.random.RandomState(5)
+    with torch.no_grad():
+        _randomize_bn(base, rng)
+        _randomize_bn(head, rng)
+    base, head = base.to(cuda), head.to(cuda)
+    data = torch.from_numpy((rng.randn(2, 224, 320, 3) * 30).astype(np.float32)).to(cuda)
+    weights = torch.from_numpy(rng.randn(6, 2048).astype(np.float32)).to(cuda, dtype)
+
+    def run():
+        base.zero_grad(set_to_none=True)
+        head.zero_grad(set_to_none=True)
+        feat = base(data)                                          # [2, 14, 20, 1024]
+        pooled = torch.cat([feat[:, :7, :7], feat[:, 5:12, 9:16], feat[:, 7:, 13:]])
+        out = head(pooled.contiguous())                            # [6, 2048]
+        ((out * weights).float().sum() + feat.float().square().mean()).backward()
+        params = [p for m in (base, head) for p in m.parameters() if p.requires_grad]
+        return [feat.detach(), out.detach()] + [p.grad for p in params]
+
+    t0 = tracing.totals()
+    got = run()
+    torch.cuda.synchronize()
+    moved = {k: tracing.totals().get(k, 0) - t0.get(k, 0)
+             for k in ("frozen_bn.kernel_calls", "frozen_bn.plain_calls")}
+    # layer2 (4 blocks), layer3 (6) and the head's layer4 (3): 3 sites a
+    # block, each forward and backward
+    assert moved == {"frozen_bn.kernel_calls": 2 * 3 * (4 + 6 + 3), "frozen_bn.plain_calls": 0}
+    monkeypatch.setattr(resnet, "frozen_bn_act", fba.frozen_bn_act_modules)
+    want = run()
+    assert len(got) == len(want) > 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("downsample", [False, True])
+def test_exported_bottleneck_launches_the_frozen_bn_kernel(cuda, downsample):
+    """`torch.export` on the card traces a conv's output as NCHW (cuDNN
+    gives channels-last): the op still takes every site, and the replay
+    launches the kernel at each and gives the eager bits."""
+    from rlobjectdetection_tpu_torch.models.backbones.resnet import Bottleneck, nhwc_to_nchw
+    from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
+
+    torch.manual_seed(0)
+    block = Bottleneck(512 if downsample else 1024, 256, downsample=downsample)
+    with torch.no_grad():
+        _randomize_bn(block, np.random.RandomState(4))
+    block = block.to(cuda).requires_grad_(False)
+
+    class Site(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.block = block
+
+        def forward(self, x):
+            return self.block(nhwc_to_nchw(x.to(torch.bfloat16)))
+
+    site = Site().eval()
+    x = torch.randn((2, 25, 38, 512 if downsample else 1024), device=cuda)
+    with torch.no_grad():
+        program = torch.export.export(site, (x,))
+        used = [str(n.target) for n in program.graph.nodes if n.op == "call_function"
+                and str(n.target).startswith("rlod.")]
+        assert used == ["rlod.frozen_bn_act.default"] * 3
+        n0 = fba.launch_frozen_bn_act.launches
+        got = program.module()(x)
+        torch.cuda.synchronize()
+        assert fba.launch_frozen_bn_act.launches == n0 + 3
+        assert torch.equal(got, site(x))
