@@ -4,7 +4,8 @@ A copy of `rlobjectdetection_tpu/config.py` (the port imports nothing of the
 JAX package): the frozen-dataclass rebuild of the reference's three-tier
 config (code defaults ← YAML `cfg_from_file` ← CLI `cfg_from_list`) with the
 same key names, so `--set TRAIN.SCALES ...` overrides and config files mean
-the same thing to both packages.
+the same thing to both packages. `NETS` is the one table of the detector
+`--net` names, and `build_config` the config of every entry point.
 
 In the port, `CONV1_FUSED` / `LAYER1_FUSED` / `STAGE_FUSED` select the
 hand-written CUDA stem, layer1 and layer2/layer3 kernels (their plain PyTorch
@@ -236,19 +237,85 @@ LS_OVERRIDES = {"TRAIN": {"SCALES": (800,), "MAX_SIZE": 1200},
                 "TEST": {"SCALES": (800,), "MAX_SIZE": 1200}}
 
 
-# Detectron2's COCO-Detection/faster_rcnn_R_101_FPN_3x recipe for `--net
-# res101_fpn` (models/fpn.py): its RPN top-N are a level's before NMS and an
-# image's after it; 512 rois an image; weight decay on the biases too.
-NET_OVERRIDES = {
-    "res101_fpn": {
+@dataclass(frozen=True)
+class Net:
+    """A detector `--net`: the backbone `models.build_detector` takes, the
+    net's recipe (overrides that `build_config` applies after `--ls`) and
+    the global-norm clip of its SGD (None: unclipped)."""
+
+    backbone: str
+    recipe: dict = field(default_factory=dict)
+    clip_norm: float | None = None
+
+
+# Every detector `--net` of the entry points (trainval_net, test_net, serve,
+# demo, export_model). VGG-16 clips at 10 as the JAX trainer does; `tiny` is
+# the test backbone. `res101_fpn` is the FPN detector (models/fpn.py) with
+# Detectron2's COCO-Detection/faster_rcnn_R_101_FPN_3x recipe: its RPN top-N
+# are a level's before NMS and an image's after it; 512 rois an image;
+# weight decay on the biases too.
+NETS = {
+    "vgg16": Net("vgg16", clip_norm=10.0),
+    "res50": Net("resnet50"),
+    "res101": Net("resnet101"),
+    "res152": Net("resnet152"),
+    "res101_fpn": Net("resnet101_fpn", {
         "TRAIN": {"RPN_PRE_NMS_TOP_N": 2000, "RPN_POST_NMS_TOP_N": 1000, "BATCH_SIZE": 512,
                   "BG_THRESH_LO": 0.0, "WEIGHT_DECAY": 0.0001, "DOUBLE_BIAS": False,
                   "BIAS_DECAY": True, "LEARNING_RATE": 0.02, "SCALES": (800,),
                   "MAX_SIZE": 1333},
         "TEST": {"RPN_PRE_NMS_TOP_N": 1000, "RPN_POST_NMS_TOP_N": 1000, "NMS": 0.5,
                  "SCALES": (800,), "MAX_SIZE": 1333},
-    },
+    }),
+    "tiny": Net("tiny"),
 }
+
+
+def net_of_backbone(backbone: str) -> Net:
+    """The `NETS` entry that builds `backbone` (KeyError for none)."""
+    return {n.backbone: n for n in NETS.values()}[backbone]
+
+
+def build_config(dataset: str | None = None, set_cfgs=None, *, large_scale: bool = False,
+                 cfg_file: str | None = None, pooling_mode: str | None = None,
+                 net: str | None = None) -> Config:
+    """The config of every entry point: Config() with the fused stem and
+    layer1 kernels on, then in the JAX trainer's order the dataset's
+    overrides (none for a name without any, such as an imdb name), `--ls`,
+    the `--net`'s recipe (`NETS`), `--cfg`, `--set` and `--pooling_mode`.
+    Layer1's kernel stays on only with the stem's and where
+    RESNET.FIXED_BLOCKS >= 1: it reads the stem kernel's output and is
+    forward-only. VGG-16 reads CONV1_FUSED (its block-1 kernel) and ignores
+    LAYER1_FUSED."""
+    cfg = Config(CONV1_FUSED=True, LAYER1_FUSED=True)
+    if dataset in DATASET_OVERRIDES:
+        cfg = cfg_update(cfg, DATASET_OVERRIDES[dataset])
+    if large_scale:
+        cfg = cfg_update(cfg, LS_OVERRIDES)
+    if net is not None:
+        cfg = cfg_update(cfg, NETS[net].recipe)
+    if cfg_file:
+        cfg = cfg_from_file(cfg, cfg_file)
+    if set_cfgs:
+        cfg = cfg_from_list(cfg, set_cfgs)
+    if pooling_mode:
+        cfg = cfg_update(cfg, {"POOLING_MODE": pooling_mode})
+    if cfg.LAYER1_FUSED and not (cfg.CONV1_FUSED and cfg.RESNET.FIXED_BLOCKS >= 1):
+        cfg = cfg_update(cfg, {"LAYER1_FUSED": False})
+    return cfg
+
+
+def checkpoint_config(cfg: Config, payload: dict | None,
+                      class_agnostic: bool) -> tuple[Config, bool]:
+    """A `trainval_net` checkpoint's settings over an entry point's config
+    and its `--cag`: (cfg with the payload's POOLING_MODE, the
+    class_agnostic to build the detector with: `--cag` or the payload's).
+    Without a payload, both as given."""
+    if payload is None:
+        return cfg, class_agnostic
+    if payload.get("pooling_mode"):
+        cfg = cfg_update(cfg, {"POOLING_MODE": payload["pooling_mode"]})
+    return cfg, class_agnostic or bool(payload.get("class_agnostic"))
 
 
 @dataclass(frozen=True)

@@ -3,19 +3,21 @@
 `tools/demo.py`).
 
     python -m rlobjectdetection_tpu_torch.engine.demo --image_dir D \
-        [--net vgg16|res50|res101|res152|tiny] [--load_name faster_rcnn_1_20.pth] \
+        [--net NET] [--load_name faster_rcnn_1_20.pth] \
         [--out_dir O] [--cag] [--vis_thresh 0.5] [--pad_to H W] [--device cuda] \
         [--set KEY VALUE ...]
 
-Single-scale detection through `serve.Detector` (per-class NMS at TEST.NMS,
-the top TEST.MAX_DETS_PER_IMAGE), then at most 10 boxes a class above
+NET is a name of `config.NETS` (default vgg16). Single-scale detection
+through `serve.Detector` (per-class NMS at TEST.NMS, the top
+TEST.MAX_DETS_PER_IMAGE), then at most 10 boxes a class above
 `--vis_thresh` drawn with Pillow. `--load_name` is a `trainval_net`
-checkpoint: its pooling_mode and class_agnostic are restored, and its
-class names (VOC's 20 where it has none) label the boxes; the config is
-`serve.build_config` with no dataset and `--set`, so a checkpoint trained
-with other anchors needs them set (`--set ANCHOR_SCALES "(4,8,16,32)"` for
-COCO). `--pad_to H W` (snapped up to multiples of 32) pads every image that
-fits to one canvas.
+checkpoint: its pooling_mode and class_agnostic are restored
+(`config.checkpoint_config`), and its class names (VOC's 20 where it has
+none) label the boxes; the config is `config.build_config` with no
+dataset, the net's recipe and `--set`, so a checkpoint trained with other
+anchors needs them set (`--set ANCHOR_SCALES "(4,8,16,32)"` for COCO).
+`--pad_to H W` (snapped up to multiples of 32) pads every image that fits
+to one canvas.
 """
 
 from __future__ import annotations
@@ -26,12 +28,12 @@ import time
 
 import numpy as np
 
-from ..config import cfg_update
+from ..config import NETS, build_config, checkpoint_config
 from ..data.blob import read_image_bgr
 from ..device import resolve_device
 from ..models import build_detector
 from .checkpoint import load_checkpoint, read_checkpoint
-from .serve import BACKBONES, Detector, build_config
+from .serve import Detector
 
 VOC_CLASSES = (
     "__background__", "aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
@@ -42,7 +44,7 @@ VOC_CLASSES = (
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Faster R-CNN demo")
-    p.add_argument("--net", default="vgg16", choices=sorted(BACKBONES))
+    p.add_argument("--net", default="vgg16", choices=sorted(NETS))
     p.add_argument("--image_dir", default="images")
     p.add_argument("--out_dir", default=None, help="where *_det.jpg go (default --image_dir)")
     p.add_argument("--load_name", default=None, help="trainval_net checkpoint (.pth)")
@@ -79,18 +81,12 @@ def main(argv=None) -> dict:
 
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = build_config(None, args.set_cfgs)
-
-    payload, classes = None, VOC_CLASSES
-    if args.load_name:
-        payload = read_checkpoint(args.load_name)
-        if payload.get("pooling_mode"):
-            cfg = cfg_update(cfg, {"POOLING_MODE": payload["pooling_mode"]})
-        if payload.get("class_agnostic"):
-            args.class_agnostic = True
-        classes = tuple(payload.get("classes", VOC_CLASSES))
-    model = build_detector(len(classes), BACKBONES[args.net], cfg,
-                           class_agnostic=args.class_agnostic, device=dev)
+    payload = read_checkpoint(args.load_name) if args.load_name else None
+    cfg, class_agnostic = checkpoint_config(build_config(None, args.set_cfgs, net=args.net),
+                                            payload, args.class_agnostic)
+    classes = VOC_CLASSES if payload is None else tuple(payload.get("classes", VOC_CLASSES))
+    model = build_detector(len(classes), NETS[args.net].backbone, cfg,
+                           class_agnostic=class_agnostic, device=dev)
     if payload is not None:
         load_checkpoint(payload, model)
     else:

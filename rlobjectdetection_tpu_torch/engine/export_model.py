@@ -2,14 +2,17 @@
 (counterpart of the JAX package's `tools/export_model.py`).
 
     python -m rlobjectdetection_tpu_torch.engine.export_model --load_name C \
-        --net res101 --out output/model.pt2 --height 800 --width 1216 \
+        [--net NET] --out output/model.pt2 --height 800 --width 1216 \
         [--classes 81] [--cag] [--max_per_image 100] [--batch N] [--device cuda] \
         [--set KEY VALUE ...]
 
 writes the whole eval step, blob `[N, H, W, 3]` + im_info `[N, 3]` →
 backbone, proposals, head, decode, per-class NMS and the top
 `--max_per_image` → {boxes, scores, classes, valid}, at fixed shapes and
-with the weights inside, as a `.pt2` file (`torch.export.save`). The
+with the weights inside, as a `.pt2` file (`torch.export.save`). NET is a
+name of `config.NETS` (default res101), built with its recipe; a
+checkpoint's pooling_mode and class_agnostic are restored
+(`config.checkpoint_config`). The
 hand-written kernels appear in it as the `rlod::` ops of `ops/library.py`
 with their packed operands pinned as buffers (`pin_packs`), so a replay
 packs nothing and launches the same kernels. Without `--load_name` the
@@ -39,6 +42,7 @@ import torch
 
 import rlobjectdetection_tpu_torch.ops.library  # noqa: F401  (registers the rlod:: ops)
 
+from ..config import NETS
 from .detect import postprocess_detections
 
 OUTPUT_KEYS = ("boxes", "scores", "classes", "valid")
@@ -47,7 +51,7 @@ OUTPUT_KEYS = ("boxes", "scores", "classes", "valid")
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Export or replay the serving function")
     p.add_argument("--load_name", default=None, help="a trainval_net checkpoint (.pth)")
-    p.add_argument("--net", default="res101")
+    p.add_argument("--net", default="res101", choices=sorted(NETS))
     p.add_argument("--out", default=os.path.join("output", "model.pt2"))
     p.add_argument("--replay", default=None, help="load this artifact and run a synthetic frame")
     p.add_argument("--height", default=800, type=int)
@@ -119,21 +123,17 @@ def export_serving(serving: ServingModule, example: tuple, path: str) -> dict:
 def export_artifact(args) -> dict:
     """Build the detector of `args` (weights from `--load_name` or seeded
     random), export its serving function and write the artifact."""
+    from ..config import build_config, checkpoint_config
     from ..device import resolve_device
     from ..models import build_detector
     from .checkpoint import load_checkpoint, read_checkpoint
-    from .serve import BACKBONES, build_config
 
     dev = resolve_device(args.device)
-    cfg = build_config(None, args.set_cfgs)
     payload = read_checkpoint(args.load_name) if args.load_name else None
-    if payload is not None:
-        from ..config import cfg_update
-
-        cfg = cfg_update(cfg, {"POOLING_MODE": payload.get("pooling_mode", cfg.POOLING_MODE)})
-        args.class_agnostic = args.class_agnostic or bool(payload.get("class_agnostic"))
-    model = build_detector(args.classes, BACKBONES[args.net], cfg,
-                           class_agnostic=args.class_agnostic, device=dev, seed=3)
+    cfg, class_agnostic = checkpoint_config(build_config(None, args.set_cfgs, net=args.net),
+                                            payload, args.class_agnostic)
+    model = build_detector(args.classes, NETS[args.net].backbone, cfg,
+                           class_agnostic=class_agnostic, device=dev, seed=3)
     if payload is not None:
         load_checkpoint(payload, model)
     else:

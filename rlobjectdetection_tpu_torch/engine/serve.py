@@ -2,11 +2,12 @@
 of `tools/demo.py::_make_detector`, without the drawing and the webcam.
 
     python -m rlobjectdetection_tpu_torch.engine.serve --image_dir D \
-        [--load_npz P] [--net res101|res101_fpn|vgg16] [--dataset coco] [--device cuda] \
+        [--load_npz P] [--net NET] [--dataset coco] [--device cuda] \
         [--set TEST.SCALES "[800]" ...]
 
 serves every image of a folder with seeded random weights, or with a
 `save_net_npz` dump of the JAX package, and prints one line per image.
+NET is a name of `config.NETS` (default res101).
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import (DATASET_OVERRIDES, LS_OVERRIDES, NET_OVERRIDES, Config, cfg_from_file,
-                      cfg_from_list, cfg_update)
+from ..config import NETS, Config, build_config
 from ..data.blob import PIXEL_MEANS_BGR, pad_shape, prep_im_for_blob, read_image_bgr
 from ..data.minibatch import im_list_to_blob
 from ..device import pageable_to, resolve_device
@@ -29,10 +29,6 @@ from .checkpoint import load_net_npz
 from .detect import postprocess_detections
 
 NUM_CLASSES = {"pascal_voc": 21, "pascal_voc_0712": 21, "coco": 81}
-# --net → the detector's backbone, as tools/demo.py maps it (`tiny`: the test
-# backbone; `res101_fpn`: the FPN detector, `models/fpn.py`)
-BACKBONES = {"vgg16": "vgg16", "res50": "resnet50", "res101": "resnet101",
-             "res101_fpn": "resnet101_fpn", "res152": "resnet152", "tiny": "tiny"}
 
 
 class Detector:
@@ -79,52 +75,23 @@ class Detector:
                     out["roi_valid"][0], num_classes=self.model.num_classes,
                     class_agnostic=self.model.class_agnostic,
                     max_per_image=self.cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=self.cfg.TEST.NMS,
-                    score_thresh=getattr(self.model, "test_score_thresh", 0.0))
+                    score_thresh=self.model.test_score_thresh)
             with tracing.span("serve.d2h"):
                 return tuple(t.cpu().numpy() for t in dets)
-
-
-def build_config(dataset: str | None = None, set_cfgs=None, *, large_scale: bool = False,
-                 cfg_file: str | None = None, pooling_mode: str | None = None,
-                 net: str | None = None) -> Config:
-    """The config of every entry point: Config() with the fused stem and
-    layer1 kernels on, then in the JAX trainer's order the dataset's
-    overrides (none for a name without any, such as an imdb name), `--ls`,
-    the `--net`'s recipe (`NET_OVERRIDES`), `--cfg`, `--set` and
-    `--pooling_mode`. Layer1's kernel stays on only
-    with the stem's and where RESNET.FIXED_BLOCKS >= 1: it reads the stem
-    kernel's output and is forward-only. VGG-16 reads CONV1_FUSED (its
-    block-1 kernel) and ignores LAYER1_FUSED."""
-    cfg = Config(CONV1_FUSED=True, LAYER1_FUSED=True)
-    if dataset in DATASET_OVERRIDES:
-        cfg = cfg_update(cfg, DATASET_OVERRIDES[dataset])
-    if large_scale:
-        cfg = cfg_update(cfg, LS_OVERRIDES)
-    if net in NET_OVERRIDES:
-        cfg = cfg_update(cfg, NET_OVERRIDES[net])
-    if cfg_file:
-        cfg = cfg_from_file(cfg, cfg_file)
-    if set_cfgs:
-        cfg = cfg_from_list(cfg, set_cfgs)
-    if pooling_mode:
-        cfg = cfg_update(cfg, {"POOLING_MODE": pooling_mode})
-    if cfg.LAYER1_FUSED and not (cfg.CONV1_FUSED and cfg.RESNET.FIXED_BLOCKS >= 1):
-        cfg = cfg_update(cfg, {"LAYER1_FUSED": False})
-    return cfg
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="Faster R-CNN detection over an image folder")
     p.add_argument("--image_dir", required=True)
     p.add_argument("--load_npz", default=None, help="save_net_npz dump of the JAX package")
-    p.add_argument("--net", default="res101", choices=sorted(BACKBONES))
+    p.add_argument("--net", default="res101", choices=sorted(NETS))
     p.add_argument("--dataset", default="coco", choices=sorted(NUM_CLASSES))
     p.add_argument("--device", default="cuda")
     p.add_argument("--set", dest="set_cfgs", nargs="*", default=None)
     args = p.parse_args(argv)
 
     cfg = build_config(args.dataset, args.set_cfgs, net=args.net)
-    model = build_detector(NUM_CLASSES[args.dataset], BACKBONES[args.net], cfg,
+    model = build_detector(NUM_CLASSES[args.dataset], NETS[args.net].backbone, cfg,
                            device=args.device)
     if args.load_npz:
         load_net_npz(args.load_npz, model)

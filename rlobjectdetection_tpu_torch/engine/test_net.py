@@ -2,23 +2,25 @@
 package's `tools/test_net.py`).
 
     python -m rlobjectdetection_tpu_torch.engine.test_net --dataset coco \
-        [--net res101|res50|vgg16|tiny] [--load_dir D [--s S] [--checkepoch E]] \
+        [--net NET] [--load_dir D [--s S] [--checkepoch E]] \
         [--weights F] [--load_npz P] [--batch N] [--packed_input DIR] \
         [--device cuda] [--cfg F] [--ls] [--cag] [--vis [--vis_max K]] \
         [--set KEY VALUE ...]
 
-builds the test roidb (`$RLOD_DATA_DIR`, as the JAX package reads it), runs
-the detector over every image, writes `output/<net>/<imdb>/detections.pkl`
-and scores it with the imdb's `evaluate_detections` (COCOeval for COCO,
-`voc_eval` for VOC, `vg_eval` for Visual Genome, the VOC-style loop for
-ImageNet DET). `--packed_input DIR` packs the roidb's prepared images into
-DIR first (`data/packed.py`; only what is new) and assembles batches from
-the pack: the same batches, without the decode and resize. The weights: a
-`trainval_net` checkpoint
+NET is a name of `config.NETS` (default res101), built with its recipe.
+It builds the test roidb (`$RLOD_DATA_DIR`, as the JAX package reads it),
+runs the detector over every image, writes
+`output/<net>/<imdb>/detections.pkl` and scores it with the imdb's
+`evaluate_detections` (COCOeval for COCO, `voc_eval` for VOC, `vg_eval`
+for Visual Genome, the VOC-style loop for ImageNet DET). `--packed_input
+DIR` packs the roidb's prepared images into DIR first (`data/packed.py`;
+only what is new) and assembles batches from the pack: the same batches,
+without the decode and resize. The weights: a `trainval_net` checkpoint
 (`<load_dir>/<net>/<dataset>/faster_rcnn_<s>_<checkepoch>.pth`, whose
-pooling_mode replaces the config's; any of `--load_dir`, `--s` /
-`--checksession` and `--checkepoch` asks for one, the others default to
-`models`, 1 and 1), converted weights merged into the seeded ones
+pooling_mode replaces the config's and whose class_agnostic, where set,
+holds as `--cag` does: `config.checkpoint_config`; any of `--load_dir`,
+`--s` / `--checksession` and `--checkepoch` asks for one, the others
+default to `models`, 1 and 1), converted weights merged into the seeded ones
 (`--weights`, `convert_torch_weights`' output), a `save_net_npz` dump of the
 JAX package (`--load_npz`), or else the seeded random weights.
 
@@ -41,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import Config, cfg_update
+from ..config import NETS, Config, build_config, checkpoint_config
 from ..data.imdb import combined_roidb
 from ..data.loader import RoiBatchLoader, eval_bucket_plan
 from ..data.packed import PackedRoiBatchLoader, pack_timed
@@ -52,7 +54,6 @@ from .checkpoint import (checkpoint_path, load_checkpoint, load_net_npz, load_pa
                          read_checkpoint)
 from .convert_torch_weights import merge_pretrained
 from .detect import detections_to_all_boxes, postprocess_detections
-from .serve import BACKBONES, build_config
 
 DATASET_MAP = {
     "pascal_voc": "voc_2007_test",
@@ -79,7 +80,7 @@ def refuse_waiting_flags(parser, argv, waiting: dict, prog: str) -> None:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Evaluate a Faster R-CNN detector on a dataset")
     p.add_argument("--dataset", default="pascal_voc")
-    p.add_argument("--net", default="res101", choices=sorted(BACKBONES))
+    p.add_argument("--net", default="res101", choices=sorted(NETS))
     p.add_argument("--cfg", dest="cfg_file", default=None)
     p.add_argument("--set", dest="set_cfgs", nargs=argparse.REMAINDER, default=None)
     p.add_argument("--ls", dest="large_scale", action="store_true")
@@ -145,7 +146,7 @@ def postprocess_batch(model, out, info, n: int, cfg: Config) -> torch.Tensor:
             max_per_image=cfg.TEST.MAX_DETS_PER_IMAGE, nms_thresh=cfg.TEST.NMS,
             bbox_reg=cfg.TEST.BBOX_REG, normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS,
             normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS,
-            score_thresh=getattr(model, "test_score_thresh", 0.0))
+            score_thresh=model.test_score_thresh)
         rows.append(torch.cat([boxes, scores[:, None], classes[:, None].float(),
                                valid[:, None].float()], 1))
     return torch.stack(rows)
@@ -275,11 +276,11 @@ def main(argv=None):
         path = checkpoint_path(args.load_dir or "models", args.net, args.dataset,
                                args.session or 1, args.checkepoch or 1)
         payload = read_checkpoint(path)
-        if payload.get("pooling_mode"):
-            cfg = cfg_update(cfg, {"POOLING_MODE": payload["pooling_mode"]})
+    cfg, class_agnostic = checkpoint_config(cfg, payload, args.class_agnostic)
+    if payload is not None:
         print(f"load checkpoint {path} (pooling_mode {cfg.POOLING_MODE})")
-    model = build_detector(imdb_obj.num_classes, BACKBONES[args.net], cfg,
-                           class_agnostic=args.class_agnostic, device=dev)
+    model = build_detector(imdb_obj.num_classes, NETS[args.net].backbone, cfg,
+                           class_agnostic=class_agnostic, device=dev)
     if payload is not None:
         load_checkpoint(payload, model)
     elif args.weights:

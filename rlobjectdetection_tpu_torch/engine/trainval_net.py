@@ -2,7 +2,7 @@
 package's `tools/trainval_net.py`).
 
     python -m rlobjectdetection_tpu_torch.engine.trainval_net --dataset coco \
-        [--net res101|res101_fpn|res50|res152|vgg16|tiny] [--bs N] [--epochs E] [--lr LR] \
+        [--net NET] [--bs N] [--epochs E] [--lr LR] \
         [--lr_decay_step K] [--save_dir D] [--s S] [--r --checkepoch k] \
         [--pretrained F] [--nw W] [--packed_input DIR] [--device cuda] \
         [--dist_coordinator HOST:PORT --dist_nprocs N --dist_rank R] \
@@ -17,11 +17,13 @@ each epoch pins the loader's plan to the epoch (`set_epoch`), assembles
 batches on `--nw` worker threads (`AsyncLoader`; `--nw 0` assembles in the
 loop) and copies them to the card ahead of the step (`device_prefetch`).
 The step is `make_train_step` with SGD over the reference's groups, the
-step-decay schedule (×gamma every `lr_decay_step` epochs) and, for VGG-16,
-the global norm clipped at 10. Each step's sampling and dropout generators
-are seeded from (RNG_SEED + 1, global step), so a resumed run replays the
-draws of the run it continues. A checkpoint is written at the end of every
-epoch, `<save_dir>/<net>/<dataset>/faster_rcnn_<s>_<epoch>.pth`; `--r
+step-decay schedule (×gamma every `lr_decay_step` epochs) and the net's
+clip of the global norm (VGG-16's 10). NET is a name of `config.NETS`
+(default res101): its backbone, recipe and clip. Each step's sampling and
+dropout generators are seeded from (RNG_SEED + 1, global step), so a
+resumed run replays the draws of the run it continues. A checkpoint is
+written at the end of every epoch,
+`<save_dir>/<net>/<dataset>/faster_rcnn_<s>_<epoch>.pth`; `--r
 --checkepoch k` restores the model, momentum, schedule and step from
 epoch k's and goes on at epoch k + 1.
 
@@ -50,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from ..config import NETS, build_config
 from ..data.imdb import combined_roidb
 from ..data.loader import HostShardLoader, RoiBatchLoader
 from ..data.packed import PackedRoiBatchLoader, pack_timed
@@ -65,7 +68,6 @@ from ..utils.logging import (AveMeter, MetricsWriter, init_log, start_profiler_t
 from .checkpoint import checkpoint_path, load_checkpoint, load_params, save_checkpoint
 from .convert_torch_weights import merge_pretrained
 from .optim import build_optimizer, count_trainable, make_lr_schedule
-from .serve import BACKBONES, build_config
 from .test_net import refuse_waiting_flags
 from .train import make_train_step
 
@@ -86,9 +88,7 @@ LOSS_KEYS = ("loss", "rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box")
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a Faster R-CNN detector")
     p.add_argument("--dataset", default="pascal_voc")
-    p.add_argument("--net", default="res101", choices=["vgg16", "res50", "res101", "res101_fpn",
-                                                      "res152", "tiny"],
-                   help="res101_fpn: Faster R-CNN R101-FPN (Detectron2's COCO 3x recipe)")
+    p.add_argument("--net", default="res101", choices=sorted(NETS))
     p.add_argument("--start_epoch", default=1, type=int)
     p.add_argument("--epochs", default=20, type=int)
     p.add_argument("--disp_interval", default=100, type=int)
@@ -291,18 +291,18 @@ def _train(args, world, dev) -> dict:
         loader = RoiBatchLoader(roidb, ratio_list, ratio_index, args.batch_size, **loader_kw)
     iters_per_epoch = len(loader)
 
-    backbone = BACKBONES[args.net]
-    model = build_detector(imdb_obj.num_classes, backbone, cfg,
+    net = NETS[args.net]
+    model = build_detector(imdb_obj.num_classes, net.backbone, cfg,
                            class_agnostic=args.class_agnostic, device=dev, seed=cfg.RNG_SEED)
     if args.pretrained:
         model.load_state_dict(merge_pretrained(model.state_dict(), load_params(args.pretrained)))
     schedule = make_lr_schedule(args.lr, args.lr_decay_step * iters_per_epoch,
                                 args.lr_decay_gamma)
     opt, sched, labels = build_optimizer(
-        model, backbone, args.lr, momentum=cfg.TRAIN.MOMENTUM,
+        model, net.backbone, args.lr, momentum=cfg.TRAIN.MOMENTUM,
         weight_decay=cfg.TRAIN.WEIGHT_DECAY, double_bias=cfg.TRAIN.DOUBLE_BIAS,
         bias_decay=cfg.TRAIN.BIAS_DECAY, fixed_blocks=cfg.RESNET.FIXED_BLOCKS,
-        lr_schedule=schedule, clip_norm=10.0 if backbone == "vgg16" else None)
+        lr_schedule=schedule, clip_norm=net.clip_norm)
     log.info(f"{args.net} on {dev}, compute {cfg.DTYPE}, tensors by label "
              f"{count_trainable(labels)}, {iters_per_epoch} steps an epoch at batch "
              f"{args.batch_size}" + (f", data-parallel over {world.size} processes "

@@ -77,6 +77,8 @@ class FasterRCNN(nn.Module):
     weights are made from `seed` (the JAX model's initialisers, numbers from
     a torch.Generator). `tiny` is the JAX package's test backbone."""
 
+    test_score_thresh = 0.0      # the post-process keeps every score (fpn.TEST_SCORE_THRESH: 0.05)
+
     def __init__(self, num_classes: int, backbone: str = "resnet101",
                  cfg: Config = Config(), class_agnostic: bool = False, *,
                  device: str | torch.device = "cuda", seed: int = 3):

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
-from ..config import Config, RLConfig, TestConfig, TrainConfig
+from ..config import Config, RLConfig, TestConfig, TrainConfig, net_of_backbone
 from ..engine.checkpoint import load_checkpoint, save_checkpoint
 from ..engine.detect import postprocess_detections
 from ..engine.optim import build_optimizer
@@ -58,6 +58,7 @@ from ..engine.train import make_train_step
 from ..models import build_detector
 from ..models.backbones import resnet_ties, vgg_ties
 from ..models.backbones.resnet import LAYER_SPECS
+from ..models.backbones.vgg import VGGBase
 from ..models.rl import RLPolicyNet
 from ..ops.library import WRAPPERS
 from .distributed import (GlobalBatch, fetch_scalar, initialize, shard_global_batch,
@@ -121,7 +122,7 @@ def _build(spec, device):
             model, dataclasses.replace(RLConfig(), learning_rate=spec["lr"]), 1)
         return model, opt, sched
     opt, sched, _ = build_optimizer(model, spec["backbone"], spec["lr"],
-                                    clip_norm=10.0 if spec["backbone"] == "vgg16" else None)
+                                    clip_norm=net_of_backbone(spec["backbone"]).clip_norm)
     return model, opt, sched
 
 
@@ -200,7 +201,7 @@ def run_spec(spec: dict, world=None) -> dict:
         out["kept"] = _eval(spec, model, device, gb is not None)
     trained = model if world is None else replicate(model, device)
     gates = contextlib.nullcontext()
-    vgg = spec.get("backbone") == "vgg16"
+    vgg = isinstance(getattr(model, "base", None), VGGBase)
     tied, ties = (model.base, vgg_ties) if vgg else (model, resnet_ties)
     if spec.get("record_ties"):
         out["ties"] = {}

@@ -19,7 +19,8 @@ calibrated on the batch's first image), 3 classes, a batch of 2 images of
   port's proposals and the same sampling uniforms;
 - the 2-rank data-parallel step (gloo) against the one-process step;
 - the CLIs: `trainval_net --net res101_fpn` trains a checkpoint that
-  `test_net` evaluates, and an unknown `--net` exits 2;
+  `test_net` evaluates, and an unknown `--net` exits 2 in each detector
+  CLI;
 - the benchmark cell's driver at a tiny size (correct against the
   reference), its FLOP count and the span-annotation reader.
 
@@ -519,15 +520,16 @@ def test_trainval_net_trains_and_test_net_serves_res101_fpn(coco_root, tmp_path,
     assert len(stats) == 12
 
 
-@pytest.mark.parametrize("cli", ["trainval_net", "serve"])
+@pytest.mark.parametrize("cli", ["trainval_net", "serve", "test_net", "demo", "export_model"])
 def test_unknown_net_exits_2(cli):
-    from rlobjectdetection_tpu_torch.engine import serve, trainval_net
+    import importlib
 
+    mod = importlib.import_module(f"rlobjectdetection_tpu_torch.engine.{cli}")
     with pytest.raises(SystemExit) as e:
-        if cli == "trainval_net":
-            trainval_net.parse_args(["--net", "res101_fpn2"])
+        if cli == "serve":
+            mod.main(["--image_dir", ".", "--net", "res101_fpn2"])
         else:
-            serve.main(["--image_dir", ".", "--net", "res101_fpn2"])
+            mod.parse_args(["--net", "res101_fpn2"])
     assert e.value.code == 2
 
 
