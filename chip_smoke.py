@@ -33,6 +33,13 @@ it, the chain and the byte bound timed; its rows in the kernels line take
 their launches from the flagship's requests and train steps and the FPN
 phase, where every one of a forward's 90 sites launches it once each way
 and none is left to the modules (`frozen_bn_main_path`).
+Then the served image's blob kernel (`csrc/image_blob.cu`, the op
+`rlod::image_blob`; `image_blob_path`): against its plain version to the
+bit, timed at the serve pool's six blob shapes beside the host's numpy prep
+it replaces, and a CUDA `Detector` over the pool's eight sizes, where each
+request launches it once, allocates no staging buffer after warm-up and
+copies nothing pageable but the RPN's anchors. `python3 chip_smoke.py
+blob` runs that phase alone.
 Then, for each of the two served
 detectors (81 COCO classes, 800×1216, bf16 compute, seeded random weights)
 behind `Detector`:
@@ -490,7 +497,8 @@ def serve_requests(label: str, detector, images, counters: dict) -> dict:
         f.launches = 0
     latencies = []
     for i, im in enumerate(images):
-        check(detector.blob(im)[0].shape == BLOB_SHAPE, f"{label} request {i}: blob shape")
+        # the padded shape from the host's staging alone: nothing launched
+        check((1, *detector.blob(im).pad, 3) == BLOB_SHAPE, f"{label} request {i}: blob shape")
         before = {k: f.launches for k, f in counters.items()}
         t0 = time.perf_counter()
         boxes, scores, classes, valid = detector.detect(im)     # ends in a device sync
@@ -605,10 +613,8 @@ def request_stages(label: str, detector, image, base_stage: str, head_stage: str
     with torch.no_grad():
         for _ in range(2):                      # the second pass is the one kept
             lap.start()
-            blob, im_info = detector.blob(image)
-            data = torch.from_numpy(blob).to(dev)
-            info = torch.from_numpy(im_info).to(dev)
-            lap("prep (numpy resize and pad, copy to the card)")
+            data, info = detector.inputs(image)
+            lap("prep (the image staged and copied, the blob built on the card)")
             feat = (model.base(data, fwd_only=True) if isinstance(model.base, ResNetBase)
                     else model.base(data))
             lap(base_stage)
@@ -760,6 +766,7 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     from rlobjectdetection_tpu_torch.ops import (layer1_kernel, nms_kernel, roi_align_kernel,
                                                  stem_kernel)
     from rlobjectdetection_tpu_torch.ops import frozen_bn_act as fba
+    from rlobjectdetection_tpu_torch.ops import image_blob as ib
     from rlobjectdetection_tpu_torch.ops.bn_fold import bn_mul_add
 
     dev = torch.device("cuda")
@@ -775,11 +782,14 @@ def flagship(cfg, images) -> tuple[dict, dict, dict]:
     counters = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1,
                 "roi_align_avg": roi_align_kernel.roi_align_avg,
                 "nms_sorted_mask": nms_kernel.launch_nms,
-                "frozen_bn_act": fba.launch_frozen_bn_act}
+                "frozen_bn_act": fba.launch_frozen_bn_act,
+                "image_blob": ib.launch_image_blob}
     plain = frozen_bn_plain_calls()
     with nms_by_shape() as nms_calls:
         launches = serve_requests("main", detector, images, counters)
     frozen_bn_main_path("main requests", launches, len(images), 0, plain)
+    check(launches["image_blob"] == len(images),
+          f"main requests: {launches['image_blob']} image_blob launches in {len(images)}")
     # a request: the RPN's NMS (6000 boxes, two launches), the per-class NMS
     # (80 classes of 300 rois, one launch)
     want = {(1, 6000): [len(images), 2 * len(images)], (80, 300): [len(images), len(images)]}
@@ -2855,8 +2865,7 @@ def data_layer_path(det_state: dict) -> tuple[dict, dict]:
         check(n_pr == DATA_VG_CLASSES - 1 and gt_ap == 1.0, f"vg: gt mean AP {gt_ap}")
 
         # one request's postprocess at 1601 classes and at the flagship's 81
-        blob, im_info = detector.blob(image0)
-        data, info = torch.from_numpy(blob).to(dev), torch.from_numpy(im_info).to(dev)
+        data, info = detector.inputs(image0)
         pp_vg = postprocess_ms(model, vg_test_cfg, data, info)
         coco_test_cfg = build_config("coco", TEST_SET)
         del model, detector
@@ -3448,9 +3457,8 @@ def export_path(det_state: dict, vgg_state: dict, images) -> dict:
             model = FasterRCNN(NUM_CLASSES, backbone, cfg, device=dev, seed=3)
             model.load_state_dict(state)
             detector = Detector(model, cfg, dev)
-            blob, im_info = detector.blob(images[0])
-            check(blob.shape == BLOB_SHAPE, f"export {label}: blob {blob.shape}")
-            data, info = torch.from_numpy(blob).to(dev), torch.from_numpy(im_info).to(dev)
+            data, info = detector.inputs(images[0])
+            check(data.shape == BLOB_SHAPE, f"export {label}: blob {tuple(data.shape)}")
             with torch.inference_mode():              # Detector.detect's forward and postprocess
                 out = model(data, info)
                 live = postprocess_detections(
@@ -4044,6 +4052,168 @@ def frozen_bn_path() -> dict:
     return out
 
 
+# The serve pool's eight COCO sizes (h, w; port_bench/traffic/coco_serve_closed.json)
+# and one of each of the six blob shapes they make at TEST.SCALES [800]
+# (800×1088, 1088×800, 800×1216, 1216×800, 800×800, 800×1024)
+SERVE_POOL_SIZES = ((480, 640), (640, 480), (427, 640), (640, 427), (375, 500), (500, 375),
+                    (612, 612), (512, 640))
+IMAGE_BLOB_TIMED = ((480, 640), (640, 480), (427, 640), (640, 427), (612, 612), (512, 640))
+IMAGE_BLOB_SETS = 4     # images timed in turn: 4 × (3.7 + 10.4 MB) is past the 50 MB L2
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of fn() over `reps` calls after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def image_blob_path() -> dict:
+    """The served image's blob kernel (`csrc/image_blob.cu`, the op
+    `rlod::image_blob`): the kernel against its plain version on the CPU to
+    the bit at the serve pool's eight sizes (f32 and uint8), a downscale,
+    1-pixel edges, sizes at .5 and a pad_to canvas; at the pool's six blob
+    shapes (f32 images), times over IMAGE_BLOB_SETS images in turn: a CUDA
+    graph of the launches (`ms`), the profiler's kernel duration, the op as
+    `Detector` calls it, the plain version on the card, the host's numpy
+    prep and pad that the kernel replaces, and the bound (bytes: the image
+    read once, the blob written once). Then a CUDA `Detector` (the
+    flagship, ResNet-101 C4) over the pool's eight sizes after a warm-up
+    pass: one kernel call and no staging allocation a request, the
+    request's pageable bytes the RPN anchors' alone, the blob equal to the
+    host-built one to the bit, one request's copies as the profiler names
+    them, and `Detector.blob`'s host ms against the numpy prep's. Returns
+    {name: result}."""
+    from rlobjectdetection_tpu_torch.data.blob import (PIXEL_MEANS_BGR, blob_scale, pad_shape,
+                                                       prep_im_for_blob, resized_shape)
+    from rlobjectdetection_tpu_torch.data.minibatch import im_list_to_blob
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops import image_blob as ib
+    from rlobjectdetection_tpu_torch.ops.anchors import shifted_anchors
+    from rlobjectdetection_tpu_torch.utils import tracing
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    means = torch.tensor(PIXEL_MEANS_BGR.reshape(3))
+    means_c = means.to(dev)
+
+    def shapes(h, w, target=800, pad_to=None):
+        scale = blob_scale(h, w, target)
+        size = resized_shape(h, w, scale)
+        return scale, size, pad_shape(*size) if pad_to is None else pad_to
+
+    def host_blob(im):
+        return im_list_to_blob([prep_im_for_blob(im, PIXEL_MEANS_BGR, 800)[0]])
+
+    cases = [(h, w, 800, dt, None) for h, w in SERVE_POOL_SIZES for dt in (np.float32, np.uint8)]
+    cases += [(61, 97, 40, np.float32, None), (1, 7, 5, np.float32, None),
+              (9, 1, 3, np.float32, None), (4, 6, 5, np.uint8, None),
+              (2, 5, 5, np.float32, None), (480, 640, 800, np.float32, (1024, 1312))]
+    for h, w, target, dt, pad_to in cases:
+        im = rng.integers(0, 256, (h, w, 3)).astype(dt)
+        scale, size, pad = shapes(h, w, target, pad_to)
+        got = ib.image_blob(torch.from_numpy(im).to(dev), means_c, scale, size, pad)
+        want = ib.image_blob(torch.from_numpy(im), means, scale, size, pad)
+        check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+              f"image_blob {h}x{w} {dt.__name__} -> {pad}: the kernel's blob is not the plain "
+              f"version's")
+    print(f"image_blob: the kernel equals the plain version to the bit in {len(cases)} cases",
+          flush=True)
+
+    out = {}
+    no_flush = torch.empty(1, device=dev)
+    for h, w in IMAGE_BLOB_TIMED:
+        scale, size, pad = shapes(h, w)
+        ims_np = [rng.integers(0, 256, (h, w, 3)).astype(np.float32)
+                  for _ in range(IMAGE_BLOB_SETS)]
+        ims = [torch.from_numpy(a).to(dev) for a in ims_np]
+        turn = iter(range(10**9))
+        on_next = lambda fn: (lambda: fn(ims[next(turn) % IMAGE_BLOB_SETS], means_c, scale,
+                                         size, pad))
+        blob = ib.launch_image_blob(ims[0], means_c, scale, size, pad)
+        b_ms, b_by = bound(nbytes(ims[0], blob), 0.0, F32_FLOPS)
+        over_sets = lambda fn: time_ms(lambda: [on_next(fn)() for _ in ims],
+                                       no_flush) / IMAGE_BLOB_SETS
+        res = dict(err=(0.0, 0.0),
+                   ms=graph_ms(on_next(ib.launch_image_blob), no_flush,
+                               launches=IMAGE_BLOB_SETS),
+                   kernel_device_ms=kernel_device_ms(on_next(ib.launch_image_blob),
+                                                     "image_blob_kernel", 5 * IMAGE_BLOB_SETS),
+                   wrapper_ms=over_sets(ib.image_blob), plain_ms=over_sets(ib.image_blob_plain),
+                   host_ms=host_ms(lambda: host_blob(ims_np[0])), library_ms=None,
+                   bound_ms=b_ms, bound_by=b_by)
+        label = f"image_blob {h}x{w} -> {pad[0]}x{pad[1]}"
+        out[label] = res
+        print(f"{label} f32: kernel_ms {res['ms']:.4f} (a graph of the launches; the kernel's "
+              f"device duration {res['kernel_device_ms']:.4f}), wrapper_ms "
+              f"{res['wrapper_ms']:.4f} (the op as Detector calls it), plain_ms "
+              f"{res['plain_ms']:.4f} (plain PyTorch on the card), host_ms {res['host_ms']:.3f} "
+              f"(numpy prep and pad on the host, what it replaces), bound_ms {b_ms:.4f} ({b_by}: "
+              f"image + blob), {100 * b_ms / res['ms']:.1f}% of the bound in the graph, "
+              f"{100 * b_ms / res['kernel_device_ms']:.1f}% in the device duration", flush=True)
+
+    cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"])
+    model = FasterRCNN(NUM_CLASSES, "resnet101", cfg, device=dev, seed=3)
+    randomize_frozen_bn(model, seed=3)
+    detector = Detector(model, cfg, dev)
+    images = [rng.integers(0, 256, (h, w, 3)).astype(np.float32) for h, w in SERVE_POOL_SIZES]
+    for im in images:
+        detector.detect(im)
+    count = lambda k: tracing.totals().get(k, 0)
+    keys = ("blob.kernel_calls", "blob.staging_allocs", "h2d.pageable_bytes")
+    for im in images:
+        before = {k: count(k) for k in keys}
+        n0 = ib.launch_image_blob.launches
+        detector.detect(im)
+        moved = {k: count(k) - before[k] for k in keys}
+        check(ib.launch_image_blob.launches - n0 == 1,
+              f"Detector on the card, image {im.shape}: "
+              f"{ib.launch_image_blob.launches - n0} image_blob launches in one request")
+        want = host_blob(im)
+        anchors = shifted_anchors(want.shape[1] // 16, want.shape[2] // 16, 16,
+                                  ratios=tuple(cfg.ANCHOR_RATIOS),
+                                  scales=tuple(cfg.ANCHOR_SCALES)).nbytes
+        check(moved == {"blob.kernel_calls": 1, "blob.staging_allocs": 0,
+                        "h2d.pageable_bytes": anchors},
+              f"Detector on the card, image {im.shape}: counters moved {moved}, the anchors "
+              f"are {anchors} bytes")
+        data = detector.inputs(im)[0]
+        check(torch.equal(data.cpu().view(torch.int32), torch.from_numpy(want).view(torch.int32)),
+              f"Detector on the card, image {im.shape}: the blob is not the host-built one")
+        print(f"image_blob request {im.shape[0]}x{im.shape[1]} -> {tuple(data.shape)}: "
+              f"{moved}", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(10):
+            detector.detect(images[i % len(images)])
+        torch.cuda.synchronize()
+    copies = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and (
+                "Memcpy" in e.name or "image_blob_kernel" in e.name):
+            name = "image_blob_kernel" if "image_blob_kernel" in e.name else e.name
+            n, ms = copies.get(name, (0, 0.0))
+            copies[name] = (n + 1, ms + e.device_time / 1e3)
+    print("image_blob: 10 requests' copies and blob kernels as the profiler names them "
+          "(count, device ms): " + ", ".join(f"{k} {n} {ms:.4f}" for k, (n, ms) in
+                                             copies.items()), flush=True)
+    prep = {f"{h}x{w}": (host_ms(lambda: detector.blob(im), 9),
+                         host_ms(lambda: host_blob(im), 5))
+            for (h, w), im in zip(SERVE_POOL_SIZES, images)}
+    print("image_blob: host ms a request, Detector.blob (staging) against the numpy prep and "
+          "pad it replaced: " + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in prep.items()),
+          flush=True)
+    del detector, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def report(name, r, launches, label=None) -> None:
     wrapper = f"wrapper_ms {r['wrapper_ms']:.4f}, " if "wrapper_ms" in r else ""
     print(f"{label or name}: kernel_ms {r['ms']:.4f}, {wrapper}plain_ms {r['plain_ms']:.4f}, "
@@ -4056,6 +4226,15 @@ def report(name, r, launches, label=None) -> None:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the smoke run needs a GPU")
+    if sys.argv[1:] == ["blob"]:
+        # the served image's blob kernel alone: `python3 chip_smoke.py blob`
+        from rlobjectdetection_tpu_torch.ops import _build
+
+        print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi_line()}; "
+              f"build {_build.build(('image_blob',))}", flush=True)
+        image_blob_path()
+        print(json.dumps({"ok": True, "phase": "blob"}), flush=True)
+        return
     if sys.argv[1:] == ["fpn"]:
         # the FPN pooler's phase alone: `python3 chip_smoke.py fpn`
         print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {nvidia_smi_line()}",
@@ -4101,6 +4280,7 @@ def main() -> None:
     nms_results = nms_path(torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
     fpn_results = fpn_path(torch.empty(64 * 2**20, dtype=torch.uint8, device=dev))
     bn_act_results = frozen_bn_path()
+    blob_results = image_blob_path()
 
     # 3. the two served detectors, one after the other (the first freed
     # before the second, so each path's peak memory is its own)
@@ -4309,6 +4489,19 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
         report(name, r, f"{FROZEN_BN_MAIN_PATH[name]} in {in_bn}")
+    # the served image's blob: launches on the main path, the flagship's
+    # requests alone (the blob phase checks one launch a request apart)
+    blob_launches = launches["image_blob"]
+    in_blob = f"the flagship's {len(images)} requests"
+    for label, r in blob_results.items():
+        kernels.append({"name": label, "route": "cuda",
+                        "source": "rlobjectdetection_tpu_torch/csrc/image_blob.cu",
+                        "replaces": "none (data/blob.py's numpy resize and pad on the host)",
+                        "launches": blob_launches, "max_abs_err": 0.0, "ms": r["ms"],
+                        "kernel_device_ms": r["kernel_device_ms"], "plain_ms": r["plain_ms"],
+                        "host_ms": r["host_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+        report("image_blob", r, f"{blob_launches} in {in_blob}", label)
     print(f"roi modes (plain PyTorch, no kernel; bf16): {mode_times}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -28,15 +28,25 @@ def prep_im_for_blob(im: np.ndarray, pixel_means, target_size: int,
                      max_size: int | None = None):
     """Mean-subtract + shortest-side resize. Returns (im, im_scale)."""
     im = im.astype(np.float32, copy=False) - pixel_means
-    im_size_min = np.min(im.shape[0:2])
-    im_size_max = np.max(im.shape[0:2])
-    im_scale = float(target_size) / float(im_size_min)
-    if max_size is not None and np.round(im_scale * im_size_max) > max_size:
-        im_scale = float(max_size) / float(im_size_max)
+    im_scale = blob_scale(*im.shape[:2], target_size, max_size)
     return _resize(im, im_scale), im_scale
 
 
-def _linear_taps(n_out: int, n_in: int, scale: float):
+def blob_scale(h: int, w: int, target_size: int, max_size: int | None = None) -> float:
+    """The resize factor that takes an h×w image's short side to
+    `target_size` (its long side to at most `max_size`, where given)."""
+    im_scale = float(target_size) / float(min(h, w))
+    if max_size is not None and np.round(im_scale * max(h, w)) > max_size:
+        im_scale = float(max_size) / float(max(h, w))
+    return im_scale
+
+
+def resized_shape(h: int, w: int, scale: float) -> tuple[int, int]:
+    """The size `_resize` gives an h×w image at `scale`."""
+    return int(np.rint(h * scale)), int(np.rint(w * scale))
+
+
+def linear_taps(n_out: int, n_in: int, scale: float):
     """Source index pairs and weights of INTER_LINEAR along one axis."""
     src = (np.arange(n_out, dtype=np.float64) + 0.5) / scale - 0.5
     i0 = np.floor(src).astype(np.int64)
@@ -52,9 +62,9 @@ def _linear_taps(n_out: int, n_in: int, scale: float):
 def _resize(im: np.ndarray, scale: float) -> np.ndarray:
     """`cv2.resize(im, None, fx=scale, fy=scale, interpolation=INTER_LINEAR)`."""
     h, w = im.shape[:2]
-    oh, ow = int(np.rint(h * scale)), int(np.rint(w * scale))
-    y0, y1, fy = _linear_taps(oh, h, scale)
-    x0, x1, fx = _linear_taps(ow, w, scale)
+    oh, ow = resized_shape(h, w, scale)
+    y0, y1, fy = linear_taps(oh, h, scale)
+    x0, x1, fx = linear_taps(ow, w, scale)
     fy = fy[:, None, None]
     rows = im[y0] * (1.0 - fy) + im[y1] * fy
     fx = fx[None, :, None]

@@ -15,15 +15,16 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import NETS, Config, build_config
-from ..data.blob import PIXEL_MEANS_BGR, pad_shape, prep_im_for_blob, read_image_bgr
-from ..data.minibatch import im_list_to_blob
-from ..device import pageable_to, resolve_device
+from ..data.blob import PIXEL_MEANS_BGR, blob_scale, pad_shape, read_image_bgr, resized_shape
+from ..device import resolve_device
 from ..models import build_detector
+from ..ops.image_blob import image_blob
 from ..utils import tracing
 from .checkpoint import load_net_npz
 from .detect import postprocess_detections
@@ -31,10 +32,35 @@ from .detect import postprocess_detections
 NUM_CLASSES = {"pascal_voc": 21, "pascal_voc_0712": 21, "coco": 81}
 
 
+class Staged(NamedTuple):
+    """A request's input on the host, as `Detector.blob` leaves it: `host`,
+    the bytes to copy (im_info's three f32, then the image from byte
+    `INFO_BYTES`, `image_dtype`, `[h, w, 3]`), the resize factor, the
+    resized size and the blob's padded shape."""
+
+    host: torch.Tensor
+    image_dtype: torch.dtype
+    image_shape: tuple[int, int]
+    scale: float
+    size: tuple[int, int]
+    pad: tuple[int, int]
+
+
+INFO_BYTES = 16         # im_info's 12 bytes, the image 16-byte aligned after them
+
+
 class Detector:
     """`detect(im_bgr)` → (boxes `[M, 4]`, scores `[M]`, classes `[M]`,
     valid `[M]`) as numpy, M = cfg.TEST.MAX_DETS_PER_IMAGE, boxes in the
-    image's own coordinates."""
+    image's own coordinates.
+
+    A request's input crosses as the decoded image: `blob` writes it and
+    im_info into a staging buffer the detector owns (pinned on a CUDA
+    detector; it grows only when a larger image arrives, counting
+    `blob.staging_allocs`), `put` sends that buffer in one copy and builds
+    the blob where the model runs (`ops/image_blob.py`: on the card one
+    kernel launch), equal to `prep_im_for_blob` and the 32-pad to the
+    bit."""
 
     def __init__(self, model, cfg: Config, device: str | torch.device = "cuda",
                  pad_to: tuple[int, int] | None = None):
@@ -42,32 +68,69 @@ class Detector:
         self.model = model.to(self.device)
         self.cfg = cfg
         self.pad_to = None if pad_to is None else pad_shape(*pad_to)
+        self.means = torch.tensor(PIXEL_MEANS_BGR.reshape(3), device=self.device)
+        self._staging = None
+        # recorded after each copy out of the staging buffer, waited on
+        # before the buffer is written again
+        self._copied = torch.cuda.Event() if self.device.type == "cuda" else None
 
-    def blob(self, im_bgr: np.ndarray):
-        """Mean-subtracted, resized, 32-padded `[1, H, W, 3]` blob and its
-        im_info `[1, 3]` (h, w, scale) as numpy. With `pad_to` (snapped up
-        to multiples of 32) the blob is that canvas wherever the image fits
-        in it."""
-        im, im_scale = prep_im_for_blob(im_bgr, PIXEL_MEANS_BGR, self.cfg.TEST.SCALES[0])
-        im_info = np.array([[im.shape[0], im.shape[1], im_scale]], dtype=np.float32)
-        blob = im_list_to_blob([im])
-        if self.pad_to is not None and all(p >= s for p, s in zip(self.pad_to, blob.shape[1:3])):
-            canvas = np.zeros((1, *self.pad_to, 3), dtype=np.float32)
-            canvas[0, :im.shape[0], :im.shape[1]] = im
-            blob = canvas
-        return blob, im_info
+    def _staging_buffer(self, nbytes: int) -> torch.Tensor:
+        if self._copied is not None:
+            self._copied.synchronize()
+        if self._staging is None or self._staging.numel() < nbytes:
+            self._staging = torch.empty(nbytes, dtype=torch.uint8,
+                                        pin_memory=self.device.type == "cuda")
+            tracing.count("blob.staging_allocs")
+        return self._staging[:nbytes]
+
+    def blob(self, im_bgr: np.ndarray) -> Staged:
+        """The host's part of a request's input: the resize factor, the
+        resized size and the padded shape (with `pad_to`, snapped up to
+        multiples of 32, that canvas wherever the image fits in it), and
+        im_info (h, w, scale) and the image in the staging buffer. A
+        uint8 image stays uint8, any other is taken as f32."""
+        h, w = im_bgr.shape[:2]
+        scale = blob_scale(h, w, self.cfg.TEST.SCALES[0])
+        size = resized_shape(h, w, scale)
+        pad = pad_shape(*size)
+        if self.pad_to is not None and all(p >= s for p, s in zip(self.pad_to, pad)):
+            pad = self.pad_to
+        dtype, image_dtype = ((np.uint8, torch.uint8) if im_bgr.dtype == np.uint8
+                              else (np.float32, torch.float32))
+        nbytes = INFO_BYTES + h * w * 3 * np.dtype(dtype).itemsize
+        host = self._staging_buffer(nbytes)
+        raw = host.numpy()
+        raw[:12].view(np.float32)[:] = (size[0], size[1], scale)
+        np.copyto(raw[INFO_BYTES:].view(dtype).reshape(h, w, 3), im_bgr, casting="unsafe")
+        return Staged(host, image_dtype, (h, w), scale, size, pad)
+
+    def put(self, staged: Staged):
+        """The staged input on the detector's device in one copy (from
+        pinned memory, not waited for), and the blob built there: (data
+        `[1, H, W, 3]` f32, im_info `[1, 3]`)."""
+        buf = staged.host.to(self.device, non_blocking=True, copy=True)
+        if self._copied is not None:
+            self._copied.record(torch.cuda.current_stream(self.device))
+        info = buf[:12].view(torch.float32).view(1, 3)
+        image = buf[INFO_BYTES:].view(staged.image_dtype).view(*staged.image_shape, 3)
+        return image_blob(image, self.means, staged.scale, staged.size, staged.pad), info
+
+    def inputs(self, im_bgr: np.ndarray):
+        """(data, im_info) of one image on the detector's device, as
+        `detect` gives them to the model."""
+        return self.put(self.blob(im_bgr))
 
     @torch.inference_mode()
     def detect(self, im_bgr: np.ndarray):
         """Spans `serve.request` around the call, and within it
-        `serve.prep`, `serve.h2d`, the model's, `serve.postprocess` and
-        `serve.d2h` (where the host waits for the card)."""
+        `serve.prep` (`blob`), `serve.h2d` (`put`), the model's,
+        `serve.postprocess` and `serve.d2h` (where the host waits for the
+        card)."""
         with tracing.span("serve.request", shape=tuple(im_bgr.shape)):
             with tracing.span("serve.prep"):
-                blob, im_info = self.blob(im_bgr)
+                staged = self.blob(im_bgr)
             with tracing.span("serve.h2d"):
-                data = pageable_to(blob, self.device)
-                info = pageable_to(im_info, self.device)
+                data, info = self.put(staged)
             out = self.model(data, info)
             with tracing.span("serve.postprocess"):
                 dets = postprocess_detections(

@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 KERNELS = ("stem", "layer1", "roi_align", "vgg_block1", "res_stage", "nms", "roi_align_levels",
-           "frozen_bn_act")
+           "frozen_bn_act", "image_blob")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}

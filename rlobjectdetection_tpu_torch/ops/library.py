@@ -17,6 +17,9 @@ the op's plain body, Jacobi sweeps that wait on the host between steps.
 affine, the residual and the ReLU; `ops/frozen_bn_act.py`), with its
 backward `rlod::frozen_bn_act_bwd`: on a CUDA tensor the kernels of
 `csrc/frozen_bn_act.cu`, on a CPU tensor the modules' arithmetic.
+`rlod::image_blob` builds a served image's blob (`ops/image_blob.py`): on
+a CUDA tensor `csrc/image_blob.cu`, on a CPU tensor the numpy resize's
+arithmetic in PyTorch.
 
 Importing this module registers the ops; it imports no model code, so a
 program exported with the ops replays after `import
@@ -36,6 +39,7 @@ import torch
 from . import (layer1_kernel, nms_kernel, res_stage_kernel, roi_align_kernel, stem_kernel,
                vgg_block1_kernel)
 from . import frozen_bn_act as fba
+from . import image_blob as ib
 from . import roi_align_levels as levels
 from .nms import _nms_sorted_mask
 from .res_stage_kernel import blocks_of
@@ -51,7 +55,8 @@ WRAPPERS = {"stem": stem_kernel.fused_stem, "layer1": layer1_kernel.fused_layer1
             "roi_align_levels": levels.roi_align_levels,
             "roi_align_levels_bwd": levels.roi_align_levels_bwd,
             "frozen_bn_act": fba.launch_frozen_bn_act,
-            "frozen_bn_act_bwd": fba.launch_frozen_bn_act_bwd}
+            "frozen_bn_act_bwd": fba.launch_frozen_bn_act_bwd,
+            "image_blob": ib.launch_image_blob}
 
 
 # -- the stem ------------------------------------------------------------------
@@ -260,6 +265,25 @@ def _bn_act_backward(ctx, grad):
 
 
 frozen_bn_act.register_autograd(_bn_act_backward, setup_context=_bn_act_setup)
+
+
+# -- a served image's blob -----------------------------------------------------------
+
+
+@torch.library.custom_op("rlod::image_blob", mutates_args=(), device_types="cpu")
+def image_blob(image: torch.Tensor, means: torch.Tensor, scale: float, size: List[int],
+               pad: List[int]) -> torch.Tensor:
+    return ib.image_blob_plain(image, means, scale, size, pad)
+
+
+@image_blob.register_kernel("cuda")
+def _(image, means, scale, size, pad):
+    return ib.launch_image_blob(image, means, scale, size, pad)
+
+
+@image_blob.register_fake
+def _(image, means, scale, size, pad):
+    return image.new_empty((1, *pad, 3), dtype=torch.float32)
 
 
 # -- NMS -------------------------------------------------------------------------

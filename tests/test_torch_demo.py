@@ -143,16 +143,16 @@ def test_demo_pad_to_snaps_to_multiples_of_32(chain):
     detector.pad_to = None
     im = read_image_bgr(str(chain["root"] / "VOCdevkit2007" / "VOC2007" / "JPEGImages" /
                             "000000.jpg"))
-    own, info = detector.blob(im)
+    own, info = (t.numpy() for t in detector.inputs(im))
     padded = Detector(detector.model, detector.cfg, "cpu", pad_to=(100, 150))
     assert padded.pad_to == (128, 160)
-    blob, info2 = padded.blob(im)
+    blob, info2 = (t.numpy() for t in padded.inputs(im))
     assert blob.shape == (1, 128, 160, 3) and np.array_equal(info, info2)
     h, w = int(info[0, 0]), int(info[0, 1])
     np.testing.assert_array_equal(blob[0, :h, :w], own[0, :h, :w])
     assert not blob[0, h:].any() and not blob[0, :, w:].any()
     small = Detector(detector.model, detector.cfg, "cpu", pad_to=(32, 32))
-    assert small.blob(im)[0].shape == own.shape
+    assert small.inputs(im)[0].shape == own.shape
 
 
 @pytest.mark.parametrize("argv,what", [(["--webcam_num", "0"], "cv2"),

@@ -755,6 +755,87 @@ def test_demo_on_one_image_on_the_card(cuda, voc_root):
         np.testing.assert_array_equal(got, w)
 
 
+# -- a served image's blob (csrc/image_blob.cu) -------------------------------------
+
+# (h, w, target, dtype, pad_to): the serve pool's eight COCO sizes at 800, a
+# downscale, 1-pixel edges, h·scale and w·scale at .5, uint8, a pad_to canvas
+IMAGE_BLOB_CASES = [(480, 640, 800, "float32", None), (640, 480, 800, "float32", None),
+                    (427, 640, 800, "float32", None), (640, 427, 800, "float32", None),
+                    (375, 500, 800, "float32", None), (500, 375, 800, "float32", None),
+                    (612, 612, 800, "float32", None), (512, 640, 800, "float32", None),
+                    (61, 97, 40, "float32", None), (1, 7, 5, "float32", None),
+                    (9, 1, 3, "float32", None), (4, 6, 5, "float32", None),
+                    (6, 4, 5, "float32", None), (2, 5, 5, "float32", None),
+                    (480, 640, 800, "uint8", None), (61, 97, 150, "uint8", None),
+                    (480, 640, 800, "float32", (1024, 1312)), (480, 640, 800, "uint8", (832, 1120))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,target,dtype,pad_to", IMAGE_BLOB_CASES)
+def test_image_blob_kernel_matches_plain_to_the_bit(cuda, h, w, target, dtype, pad_to):
+    """The kernel's blob against the plain version's on the CPU, every bit
+    (the pad's zeros included), from a contiguous image and from one with a
+    column stride (the wrapper copies it)."""
+    from rlobjectdetection_tpu_torch.data.blob import (PIXEL_MEANS_BGR, blob_scale, pad_shape,
+                                                       resized_shape)
+    from rlobjectdetection_tpu_torch.ops.image_blob import image_blob, launch_image_blob
+
+    im = np.random.default_rng(h * w).integers(0, 256, (h, 2 * w, 3)).astype(dtype)
+    scale = blob_scale(h, w, target)
+    size = resized_shape(h, w, scale)
+    pad = pad_shape(*size) if pad_to is None else pad_to
+    means = torch.tensor(PIXEL_MEANS_BGR.reshape(3))
+    n0 = launch_image_blob.launches
+    for src, on_card in ((im[:, :w].copy(), torch.from_numpy(im[:, :w].copy()).to(cuda)),
+                         (im[:, ::2].copy(), torch.from_numpy(im).to(cuda)[:, ::2])):
+        got = image_blob(on_card, means.to(cuda), scale, size, pad)
+        torch.cuda.synchronize()
+        want = image_blob(torch.from_numpy(src), means, scale, size, pad)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert launch_image_blob.launches == n0 + 2
+
+
+@pytest.mark.gpu
+def test_detector_stages_the_image_and_builds_the_blob_on_the_card(cuda):
+    """A CUDA `Detector` over the serve pool's eight sizes: each request
+    launches the blob kernel once, allocates no staging buffer after the
+    first pass, and copies nothing pageable but the RPN's anchors; its
+    blob and im_info equal the host-built ones to the bit."""
+    from rlobjectdetection_tpu_torch.data.blob import PIXEL_MEANS_BGR, prep_im_for_blob
+    from rlobjectdetection_tpu_torch.data.minibatch import im_list_to_blob
+    from rlobjectdetection_tpu_torch.engine.serve import Detector, build_config
+    from rlobjectdetection_tpu_torch.models import FasterRCNN
+    from rlobjectdetection_tpu_torch.ops.anchors import shifted_anchors
+    from rlobjectdetection_tpu_torch.utils import tracing
+
+    cfg = build_config("coco", ["TEST.SCALES", "[800]", "DTYPE", "bfloat16"])
+    detector = Detector(FasterRCNN(81, "resnet50", cfg, device=cuda), cfg, cuda)
+    rng = np.random.default_rng(5)
+    sizes = [(480, 640), (640, 480), (427, 640), (640, 427), (375, 500), (500, 375),
+             (612, 612), (512, 640)]
+    images = [rng.integers(0, 256, (h, w, 3)).astype(np.float32) for h, w in sizes]
+    for im in images:
+        detector.detect(im)
+    count = lambda k: tracing.totals().get(k, 0)
+    for im in images:
+        before = {k: count(k) for k in ("blob.kernel_calls", "blob.staging_allocs",
+                                        "h2d.pageable_bytes")}
+        detector.detect(im)
+        moved = {k: count(k) - n for k, n in before.items()}
+        resized, scale = prep_im_for_blob(im, PIXEL_MEANS_BGR, 800)
+        want = im_list_to_blob([resized])
+        anchors = shifted_anchors(want.shape[1] // 16, want.shape[2] // 16, 16,
+                                  ratios=tuple(cfg.ANCHOR_RATIOS),
+                                  scales=tuple(cfg.ANCHOR_SCALES))
+        assert moved == {"blob.kernel_calls": 1, "blob.staging_allocs": 0,
+                         "h2d.pageable_bytes": anchors.nbytes}, (im.shape, moved)
+        data, info = detector.inputs(im)
+        assert torch.equal(data.cpu().view(torch.int32),
+                           torch.from_numpy(want).view(torch.int32))
+        assert info.cpu().numpy().tolist() == np.array(
+            [[*resized.shape[:2], scale]], np.float32).tolist()
+
+
 # -- NMS ---------------------------------------------------------------------------
 
 def _nms_boxes(rng, lanes, n):
